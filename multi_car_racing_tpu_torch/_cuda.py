@@ -2,8 +2,9 @@
 plain C interface, loaded with ctypes.
 
 Each ``csrc/<name>.cu`` is compiled at first use into ``_build/`` (listed in
-``.gitignore``) under a name that hashes the source and the flags, so an
-edited source rebuilds and an unchanged one is reused. The library is written
+``.gitignore``) under a name that hashes the source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source rebuilds and an unchanged
+one is reused. The library is written
 to a temporary name and moved into place with ``os.replace``; no lock file is
 used, so a build cut off half way leaves nothing that blocks the next one.
 Nothing here runs at import: the CPU tests import every module.
@@ -54,10 +55,11 @@ def load(name: str) -> ctypes.CDLL:
     if name in _libs:
         return _libs[name]
     src = SOURCE_DIR / f"{name}.cu"
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
-    so = BUILD_DIR / f"{name}_{digest}.so"
+    h = hashlib.sha256(src.read_bytes())
+    for header in sorted(SOURCE_DIR.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    so = BUILD_DIR / f"{name}_{h.hexdigest()[:16]}.so"
     info = {"seconds": 0.0, "ptxas": [], "path": str(so)}
     if not so.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)

@@ -17,7 +17,8 @@ from collections.abc import Mapping
 import numpy as np
 import torch
 
-from .env import ContactState, EnvState, SkidState
+from .env import EnvState, SkidState
+from .physics.collide import ContactState
 from .physics.state import CarState
 from .track.common import Track
 from .util import resolve_device

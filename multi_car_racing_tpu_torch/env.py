@@ -1,14 +1,16 @@
 """Environment core: batched EnvState + reset/step over E lockstep envs.
 
-Port of the JAX package's ``env.py`` for one car per env (CarRacing-v0 and
-MultiCarRacing-v0 at ``num_agents=1``). Every tensor carries the env axis
-first; the JAX package's single-env shapes follow it.
+Port of the JAX package's ``env.py``: CarRacing-v0 (one car per env) and
+MultiCarRacing-v0 (``num_agents`` >= 2 cars per env, with car-car
+contacts). Every tensor carries the env axis first; the JAX package's
+single-env shapes follow it.
 
 Step order preserves the reference's (mcr:410-509 + Box2D internals):
   1. apply controls (steer/gas/brake setters)
   2. the fused physics stage (``physics/fused_world.island_step``): tire
      forces from the *lagged* tile contacts (Box2D collides at the start of
-     world.Step), joint limit init, constraint solve + integration
+     world.Step), car-car manifolds with their warm-start carry, joint limit
+     init, constraint solve + integration
   3. the track stage on the pre-solve pose: wheel-tile SAT (friction mask
      for the next step), tile-visit rewards (FrictionDetector, mcr:80-123),
      render color flattening; then nearest-tile heading and the on-grass
@@ -16,7 +18,7 @@ Step order preserves the reference's (mcr:410-509 + Box2D internals):
   4. post-step analysis: -0.1 step cost, backward/on-grass flags,
      all-tiles-visited / off-playfield termination (mcr:433-508)
 
-Car-car contacts (``num_agents > 1``) and skid trails are the next slices:
+Skid trails and the exact hull-touch flag belong to the rendering slice:
 ``step`` raises ``NotImplementedError`` for them rather than computing
 something else.
 """
@@ -33,22 +35,14 @@ import torch
 from . import config as C
 from . import seeding
 from .physics import overlap
+from .physics.collide import ContactState, init_contact_state
 from .physics.fused_world import island_step
 from .physics.state import CarState, apply_controls, create_cars
 from .track import host as track_host
 from .track.common import Track, pack_track_arrays, track_from_arrays
 from .util import resolve_device, tree_map
 
-M_PER_PAIR = 48          # fixture pairs per car pair (collide.py, next slice)
 MAX_SEGMENTS = 256       # skid segments per car (render/particles.py)
-
-
-@dataclasses.dataclass(frozen=True)
-class ContactState:
-    """Car-car contact warm-start carry; all zeros at one car per env."""
-    normal_imp: torch.Tensor    # (E, MM, 2)
-    tangent_imp: torch.Tensor   # (E, MM, 2)
-    ids: torch.Tensor           # (E, MM) int32
 
 
 @dataclasses.dataclass(frozen=True)
@@ -86,12 +80,6 @@ class EnvState:
 
 
 def _check_supported(cfg: C.EnvConfig):
-    if cfg.num_agents != 1:
-        raise NotImplementedError(
-            "num_agents > 1 needs car-car contacts, the next slice of the "
-            "PyTorch port (collide.py, the full-contact island kernel and the "
-            "broadphase partition)"
-        )
     if cfg.track_skid:
         raise NotImplementedError("skid trails belong to the rendering slice of the port")
     if cfg.exact_hull_touch:
@@ -102,7 +90,6 @@ def _episode_start(cars: CarState, track: Track, direction_cw: torch.Tensor,
                    num_agents: int) -> EnvState:
     E, n, mt = direction_cw.shape[0], num_agents, track.max_tiles
     dev, f32 = track.xy.device, track.xy.dtype
-    mm = max(n * (n - 1) // 2 * M_PER_PAIR, 1)
 
     def z(*shape, dtype=f32):
         return torch.zeros((E,) + shape, dtype=dtype, device=dev)
@@ -122,10 +109,7 @@ def _episode_start(cars: CarState, track: Track, direction_cw: torch.Tensor,
         t=z(),
         steps=z(dtype=torch.int32),
         done=z(dtype=torch.bool),
-        contacts=ContactState(
-            normal_imp=z(mm, 2), tangent_imp=z(mm, 2),
-            ids=torch.full((E, mm), -1, dtype=torch.int32, device=dev),
-        ),
+        contacts=init_contact_state(E, n, device=dev, dtype=f32),
         skid=SkidState(
             seg=z(n, MAX_SEGMENTS, 4), grass=z(n, MAX_SEGMENTS, dtype=torch.bool),
             valid=z(n, MAX_SEGMENTS, dtype=torch.bool), head=z(n, dtype=torch.int32),
@@ -197,9 +181,11 @@ def _physics_and_contacts(state: EnvState, cfg: C.EnvConfig):
     wheel_on_road, car_tile, touched = _contact_pass(state.cars, state.track)
     bonus, visited, cnt = _visit_rewards(state.track, state.visited, car_tile,
                                          cfg.num_agents)
-    cars, _ = island_step(state.cars, lagged, cfg.velocity_iters, cfg.position_iters)
+    cars, _, contacts = island_step(state.cars, lagged, state.contacts,
+                                    cfg.velocity_iters, cfg.position_iters)
     return state.replace(
         cars=cars,
+        contacts=contacts,
         reward=state.reward + bonus,
         visited=visited,
         tile_visited_count=state.tile_visited_count + cnt,
@@ -294,16 +280,22 @@ def step(cfg: C.EnvConfig, state: EnvState, action: torch.Tensor):
 
     Returns (state', step_reward (E, N), done (E,))."""
     _check_supported(cfg)
+    E, n = state.reward.shape
+    if n != cfg.num_agents or tuple(action.shape) != (E, n, 3):
+        raise ValueError(f"step: a state of {n} cars per env under num_agents="
+                         f"{cfg.num_agents} with actions {tuple(action.shape)}; "
+                         f"expected actions ({E}, {cfg.num_agents}, 3)")
     # Reward accrued but not yet reported: nonzero only right after reset.
     carry = state.reward - state.prev_reward
     pre_cars = apply_controls(state.cars, action.to(state.reward.dtype))
-    new_cars, _ = island_step(pre_cars, state.wheel_on_road,
-                              cfg.velocity_iters, cfg.position_iters)
+    new_cars, _, contacts = island_step(pre_cars, state.wheel_on_road, state.contacts,
+                                        cfg.velocity_iters, cfg.position_iters)
     (wheel_on_road, visited, bonus, cnt, tile_touched, nearest_beta,
      on_grass) = _track_stage(state.track, pre_cars, new_cars.hull_origin,
                               state.visited, state.tile_touched, cfg.num_agents)
     state = state.replace(
         cars=new_cars,
+        contacts=contacts,
         wheel_on_road=wheel_on_road,
         visited=visited,
         tile_touched=tile_touched,

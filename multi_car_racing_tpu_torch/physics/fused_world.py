@@ -1,27 +1,39 @@
-"""The fused physics stage of a step at one car per env: the joints-only island.
+"""The fused physics stage of a step: tire model, Collide pass and island solve.
 
 ``island_step`` runs, for every (env, car), the tire model, force
 integration, the joint limit init and the 180-velocity / 60-position
-Gauss-Seidel island solve. On CUDA tensors it launches the hand-written
-kernel ``csrc/joints_island.cu`` (which replaces the TPU kernel
-``multi_car_racing_tpu/physics/pallas_world.py::_make_mega_kernel`` with
-``force_no_contacts=True``); on CPU tensors it runs ``island_step_plain``,
-the same function as ``tire_step -> world_step`` in PyTorch ops. There is no
-fallback from one to the other: a CUDA tensor either goes through the kernel
-or raises.
+Gauss-Seidel island solve, and at two or more cars per env the car-car
+Collide pass and contact sub-passes with their warm-start carry. On CUDA
+tensors it launches a hand-written kernel:
 
-``island_step.launches`` counts kernel launches (and nothing else), so a run
-can show that its main path went through the kernel.
+- one car per env: ``csrc/joints_island.cu`` (K1), which replaces the TPU
+  kernel ``multi_car_racing_tpu/physics/pallas_world.py::_make_mega_kernel``
+  with ``force_no_contacts=True``;
+- two or more cars per env: ``csrc/contact_island.cu`` (K2), which replaces
+  the full-contact ``_make_mega_kernel``. One launch covers every env; each
+  env branches inside the kernel on its own broadphase flag (the test of
+  :func:`near_flags`), so there is no host read and no env partition.
+
+On CPU tensors it runs ``island_step_plain``, the same function as
+``tire_step -> collide -> make_bundle -> world_step -> extract_state`` in
+PyTorch ops. There is no fallback from one to the other: a CUDA tensor
+either goes through its kernel or raises.
+
+``island_step.launches`` counts K1 launches and ``island_step.contact_launches``
+K2 launches (and nothing else), so a run can show that its main path went
+through the kernels.
 """
 
 from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from .. import config as C
-from . import joints, shapes, tire, world
+from . import collide, joints, shapes, tire, world
+from .collide import ContactState
 from .state import CarState
 
 KERNEL = "joints_island"
@@ -108,20 +120,221 @@ def island_bytes(n_cars: int) -> int:
 
 
 # ---------------------------------------------------------------------------
+# K2 (csrc/contact_island.cu): constant tables, operation and byte counts.
+# ---------------------------------------------------------------------------
+
+CONTACT_KERNEL = "contact_island"
+
+# Scalars of the contact parameter table, in the order of the kernel's
+# ``enum CParam``; the fixtures' local vertices and outward normals follow
+# them, (8 fixtures x 8 vertices x 2) floats each.
+CPARAM_NAMES = (
+    "FRICTION", "TOTAL_RADIUS", "FLIP_BIAS", "LINEAR_SLOP", "BAUMGARTE",
+    "MAX_LIN_CORR", "LC_X", "LC_Y", "HULL_MID_X", "HULL_MID_Y",
+    "HULL_HALF_X", "HULL_HALF_Y", "WHEEL_HALF_X", "WHEEL_HALF_Y", "BP_SLACK",
+    "INV_M_HULL", "INV_M_WHEEL", "INV_I_HULL", "INV_I_WHEEL",
+)
+
+
+def contact_param_values() -> np.ndarray:
+    """K2's float table: the CPARAM_NAMES scalars, then the fixtures' local
+    vertices, then their normals (float32)."""
+    v = dict(
+        FRICTION=C.HULL_FRICTION, TOTAL_RADIUS=2.0 * C.B2_POLYGON_RADIUS,
+        FLIP_BIAS=0.1 * C.B2_LINEAR_SLOP, LINEAR_SLOP=C.B2_LINEAR_SLOP,
+        BAUMGARTE=C.B2_BAUMGARTE, MAX_LIN_CORR=C.B2_MAX_LINEAR_CORRECTION,
+        LC_X=shapes.HULL_LOCAL_CENTER[0], LC_Y=shapes.HULL_LOCAL_CENTER[1],
+        HULL_MID_X=HULL_AABB_MID[0], HULL_MID_Y=HULL_AABB_MID[1],
+        HULL_HALF_X=HULL_AABB_HALF[0], HULL_HALF_Y=HULL_AABB_HALF[1],
+        WHEEL_HALF_X=WHEEL_AABB_HALF[0], WHEEL_HALF_Y=WHEEL_AABB_HALF[1],
+        BP_SLACK=BP_SLACK,
+        INV_M_HULL=shapes.HULL_INV_MASS, INV_M_WHEEL=shapes.WHEEL_INV_MASS,
+        INV_I_HULL=shapes.HULL_INV_I, INV_I_WHEEL=shapes.WHEEL_INV_I,
+    )
+    return np.concatenate([
+        np.asarray([v[k] for k in CPARAM_NAMES], np.float64),
+        shapes.CAR_FIXTURE_VERTS.reshape(-1), shapes.CAR_FIXTURE_NORMALS.reshape(-1),
+    ]).astype(np.float32)
+
+
+def contact_index_table(num_cars: int) -> np.ndarray:
+    """K2's int32 routing table for ``num_cars`` cars per env, MM manifold
+    rows and NB = 5 * num_cars bodies, laid out as
+
+    - ``fix_a``, ``fix_b`` (MM each): the row's two flat fixtures ``car*8 + f``;
+    - ``body_a``, ``body_b`` (MM each): the row's two body slots ``car*5 + j``;
+    - ``offsets`` (NB + 1) and ``entries`` (2 MM): for body ``b`` the entries
+      ``offsets[b]:offsets[b+1]``, each ``row*2 + side`` (side 1 where the
+      body is the row's B side), rows ascending. A body's impulse sums run
+      in this order, so every launch adds them in the same order.
+
+    The same rows as ``collide.tables``."""
+    _, rows_a, rows_b, _, _, fix_a, fix_b = collide.tables(num_cars)
+    nb = 5 * num_cars
+    lists = [[] for _ in range(nb)]
+    for r, (a, b) in enumerate(zip(rows_a, rows_b)):
+        lists[a].append(2 * r)
+        lists[b].append(2 * r + 1)
+    offsets = np.cumsum([0] + [len(x) for x in lists])
+    entries = [e for x in lists for e in sorted(x)]
+    return np.concatenate([fix_a, fix_b, rows_a, rows_b, offsets, entries]).astype(np.int32)
+
+
+# fp32 operations of K2 beyond K1's chain, counted from csrc/contact_island.cu
+# as for K1 (a division, square root, sine or cosine counts 8). Only what this
+# call's data needs is counted: every env's broadphase; in a near env the SAT
+# of every row (it decides each row) but the world polygons once per fixture;
+# the clipping of each row whose manifold is live; and the solve of each live
+# contact point and of each body a live point touches. The kernel does more
+# (each row rebuilds its two polygons and computes arms and masses, and every
+# body walks its whole routing list in every sub-pass).
+FLOPS_BROADPHASE_CAR = 136      # every env, per car: 5 boxes (5 sin/cos pairs)
+FLOPS_BROADPHASE_PAIR = 90      # ... per car pair: 9 box-overlap tests
+FLOPS_BODY_FRAME = 24           # near env, per body: sin/cos and fixture origin
+FLOPS_FIXTURE_WORLD = 112       # ... per fixture: 8 world vertices and normals
+FLOPS_SAT_ROW = 580             # ... per row: 2 max-separation passes, flip
+FLOPS_CLIP_ROW = 313            # live row: reference/incident selects 172, clipping 141
+FLOPS_POINT_BUNDLE = 52         # live point: lever arms, normal and tangent masses
+FLOPS_POINT_WARM = 18           # ... warm start: impulse, torques, the 2 body sums
+FLOPS_POINT_VEL = 34 + 32       # ... per velocity iteration: friction, then normal
+FLOPS_POINT_POS = 30            # ... per position iteration
+FLOPS_BODY_UPDATE = 9           # a body that a live point touches, per sub-pass
+
+
+def contact_island_flops(n_cars: int, n_limit_joints: int, num_cars: int,
+                         n_near_envs: int, n_live_rows: int, n_live_points: int,
+                         n_touched_bodies: int,
+                         velocity_iters: int = C.VELOCITY_ITERS,
+                         position_iters: int = C.POSITION_ITERS) -> int:
+    """fp32 operations of one K2 call on this call's data
+    (:func:`contact_island_work` counts the last four arguments).
+
+    Point k's live points and the ``n_touched_bodies`` (summed over k) take
+    part in one warm-start sub-pass, two sub-passes (friction, normal) per
+    contact velocity iteration and one per contact position iteration."""
+    n_envs = n_cars // num_cars
+    pairs = len(collide.car_pairs(num_cars))
+    k_vel = min(C.CONTACT_VELOCITY_ITERS, velocity_iters)
+    k_pos = min(C.CONTACT_POSITION_ITERS, position_iters)
+    return (island_flops(n_cars, n_limit_joints, velocity_iters, position_iters)
+            + n_envs * (num_cars * FLOPS_BROADPHASE_CAR + pairs * FLOPS_BROADPHASE_PAIR)
+            + n_near_envs * num_cars * (5 * FLOPS_BODY_FRAME + 8 * FLOPS_FIXTURE_WORLD)
+            + n_near_envs * pairs * collide.M_PER_PAIR * FLOPS_SAT_ROW
+            + n_live_rows * FLOPS_CLIP_ROW
+            + n_live_points * (FLOPS_POINT_BUNDLE + FLOPS_POINT_WARM
+                               + k_vel * FLOPS_POINT_VEL + k_pos * FLOPS_POINT_POS)
+            + n_touched_bodies * FLOPS_BODY_UPDATE * (1 + 2 * k_vel + k_pos))
+
+
+def contact_island_work(cars: CarState) -> dict:
+    """What K2's work depends on in this input (pre-solve cars, two or more
+    per env), counted with the plain versions: near envs, manifold rows
+    with a live point, live contact points, and for each point index the
+    bodies that its live points touch, summed over envs and point indices."""
+    n = cars.hull_a.shape[1]
+    near = near_flags(cars)
+    ok = collide.collide(cars, n).point_ok & near[:, None, None]    # (E, MM, 2)
+    _, rows_a, rows_b, *_ = collide.tables(n)
+    live = ok.transpose(1, 2).to(torch.int32)                        # (E, 2, MM)
+    touches = torch.zeros((*live.shape[:2], 5 * n), dtype=torch.int32, device=live.device)
+    for rows in (rows_a, rows_b):
+        touches.index_add_(2, torch.as_tensor(rows, device=live.device), live)
+    return dict(n_near_envs=int(near.sum()), n_live_rows=int(ok.any(-1).sum()),
+                n_live_points=int(ok.sum()), n_touched_bodies=int((touches > 0).sum()))
+
+
+def contact_island_bytes(n_cars: int, num_cars: int) -> int:
+    """Bytes K2 must move: K1's car rows, plus the contact carry (4 impulse
+    floats and an int32 id per manifold row) read once and written once."""
+    n_envs = n_cars // num_cars
+    rows = len(collide.car_pairs(num_cars)) * collide.M_PER_PAIR
+    return island_bytes(n_cars) + n_envs * rows * 4 * (4 + 1) * 2
+
+
+# ---------------------------------------------------------------------------
 # Plain PyTorch version.
 # ---------------------------------------------------------------------------
 
 def island_step_plain(cars: CarState, wheel_on_road: torch.Tensor,
+                      contact_state: ContactState,
                       velocity_iters: int = C.VELOCITY_ITERS,
                       position_iters: int = C.POSITION_ITERS):
-    """tire_step -> init_constraints -> world_step in PyTorch ops.
+    """tire_step -> [collide -> make_bundle ->] world_step in PyTorch ops.
 
-    Returns (new CarState, skid (E, N, 4) bool)."""
+    Returns (new CarState, skid (E, N, 4) bool, new ContactState); at one car
+    per env the contact carry passes through unchanged."""
+    n = cars.hull_a.shape[1]
     cars, force, motor, skid = tire.tire_step(cars, wheel_on_road)
-    new_cars = world.world_step(cars, force, motor,
-                                velocity_iters=velocity_iters,
-                                position_iters=position_iters)
-    return new_cars, skid
+    if n == 1:
+        new_cars, _ = world.world_step(cars, force, motor,
+                                       velocity_iters=velocity_iters,
+                                       position_iters=position_iters)
+        return new_cars, skid, contact_state
+    man = collide.collide(cars, n)
+    bundle = collide.make_bundle(man, contact_state, cars, n)
+    new_cars, bundle = world.world_step(cars, force, motor,
+                                        velocity_iters=velocity_iters,
+                                        position_iters=position_iters,
+                                        contacts=bundle)
+    return new_cars, skid, collide.extract_state(bundle)
+
+
+# ---------------------------------------------------------------------------
+# Broadphase: the per-env flag K2 branches on.
+# ---------------------------------------------------------------------------
+
+# Local-frame AABB of the four hull fixtures relative to the hull COM (mid +
+# half-extents), and the wheel's symmetric box. Disjoint world AABBs fattened
+# by the slack guarantee b2CollidePolygons culls the pair (sep > totalRadius).
+_HULL_FIXT = shapes.CAR_FIXTURE_BODY == 0
+_hv = (shapes.CAR_FIXTURE_VERTS[_HULL_FIXT].reshape(-1, 2)
+       - shapes.HULL_LOCAL_CENTER[None, :])
+HULL_AABB_MID = tuple(float(v) for v in (_hv.min(0) + _hv.max(0)) / 2.0)
+HULL_AABB_HALF = tuple(float(v) for v in (_hv.max(0) - _hv.min(0)) / 2.0)
+_wv = shapes.CAR_FIXTURE_VERTS[~_HULL_FIXT].reshape(-1, 2)
+WHEEL_AABB_HALF = tuple(float(v) for v in np.abs(_wv).max(0))
+# Box2D's b2_aabbExtension. A slack of just the summed polygon skins is NOT
+# enough for culling soundness: for vertex-vertex closest features the SAT
+# max face separation can be as low as gap*cos(45 deg) for these right-angle
+# boxes. 0.1 m >= sqrt(2) * totalRadius covers that with Box2D's own margin.
+BP_SLACK = 0.1
+
+
+def near_flags(cars: CarState) -> torch.Tensor:
+    """Per-env broadphase: could ANY car pair of the env produce a contact?
+
+    An AABB test per colliding fixture-body combination (hull-hull and
+    hull-wheel both ways; wheel-wheel is masked out by Box2D category bits),
+    fattened by ``BP_SLACK``: if the fattened AABBs of a pair are disjoint,
+    b2CollidePolygons culls it and every contact sub-pass adds exact zeros
+    for it. Returns (E,) bool. The plain version of the flag K2 computes for
+    each env from the pre-solve poses."""
+    n = cars.hull_a.shape[1]
+    s, c = torch.sin(cars.hull_a), torch.cos(cars.hull_a)         # (E, N)
+    ac, as_ = torch.abs(c), torch.abs(s)
+    mid, half = HULL_AABB_MID, HULL_AABB_HALF
+    hull_cx = cars.hull_c[..., 0] + c * mid[0] - s * mid[1]
+    hull_cy = cars.hull_c[..., 1] + s * mid[0] + c * mid[1]
+    hull_hx = ac * half[0] + as_ * half[1]
+    hull_hy = as_ * half[0] + ac * half[1]
+    ws, wc = torch.abs(torch.sin(cars.wheel_a)), torch.abs(torch.cos(cars.wheel_a))
+    wx, wy = cars.wheel_c[..., 0], cars.wheel_c[..., 1]          # (E, N, 4)
+    whx = wc * WHEEL_AABB_HALF[0] + ws * WHEEL_AABB_HALF[1]
+    why = ws * WHEEL_AABB_HALF[0] + wc * WHEEL_AABB_HALF[1]
+
+    def overlap(ax, ay, ahx, ahy, bx, by, bhx, bhy):
+        return ((torch.abs(ax - bx) <= ahx + bhx + BP_SLACK)
+                & (torch.abs(ay - by) <= ahy + bhy + BP_SLACK))
+
+    near = torch.zeros_like(cars.hull_a[:, 0], dtype=torch.bool)
+    for (a, b) in collide.car_pairs(n):
+        ha = (hull_cx[:, a, None], hull_cy[:, a, None], hull_hx[:, a, None], hull_hy[:, a, None])
+        hb = (hull_cx[:, b, None], hull_cy[:, b, None], hull_hx[:, b, None], hull_hy[:, b, None])
+        wa = (wx[:, a], wy[:, a], whx[:, a], why[:, a])
+        wb = (wx[:, b], wy[:, b], whx[:, b], why[:, b])
+        near = (near | overlap(*ha, *hb)[:, 0] | overlap(*ha, *wb).any(-1)
+                | overlap(*wa, *hb).any(-1))
+    return near
 
 
 # ---------------------------------------------------------------------------
@@ -131,17 +344,22 @@ def island_step_plain(cars: CarState, wheel_on_road: torch.Tensor,
 _params_cache: dict = {}
 
 
-def _library():
+def _library(name: str = KERNEL):
+    """The built library of ``csrc/<name>.cu`` with its entry points typed."""
     from .. import _cuda
 
-    lib = _cuda.load(KERNEL)
-    fn = lib.joints_island_launch
+    lib = _cuda.load(name)
+    fn = getattr(lib, f"{name}_launch")
     if fn.argtypes is None:
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, vp]
+        if name == KERNEL:
+            fn.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, vp]
+        else:
+            fn.argtypes = [vp] * 13 + [ci] * 7 + [vp]
         fn.restype = ci
-        lib.joints_island_error_string.argtypes = [ci]
-        lib.joints_island_error_string.restype = ctypes.c_char_p
+        err = getattr(lib, f"{name}_error_string")
+        err.argtypes = [ci]
+        err.restype = ctypes.c_char_p
     return lib
 
 
@@ -150,6 +368,17 @@ def _params(device: torch.device) -> torch.Tensor:
     if key not in _params_cache:
         _params_cache[key] = torch.tensor(param_values(), dtype=torch.float32,
                                           device=device)
+    return _params_cache[key]
+
+
+def _contact_tables(device: torch.device, num_cars: int):
+    """K2's (float table, int32 routing table) on ``device``, built once."""
+    key = (str(device), num_cars)
+    if key not in _params_cache:
+        _params_cache[key] = (
+            torch.from_numpy(contact_param_values()).to(device),
+            torch.from_numpy(contact_index_table(num_cars)).to(device),
+        )
     return _params_cache[key]
 
 
@@ -254,21 +483,86 @@ def launch(fin: torch.Tensor, ls_in: torch.Tensor, n_cars: int,
     return fout, ls_out
 
 
+def _check_contacts(cs: ContactState, E: int, N: int, dev: torch.device):
+    mm = len(collide.car_pairs(N)) * collide.M_PER_PAIR
+    for name, t, want, shape in (("normal_imp", cs.normal_imp, torch.float32, (E, mm, 2)),
+                                 ("tangent_imp", cs.tangent_imp, torch.float32, (E, mm, 2)),
+                                 ("ids", cs.ids, torch.int32, (E, mm))):
+        if t.dtype != want or t.device != dev or tuple(t.shape) != shape:
+            raise ValueError(f"island_step: contacts.{name} must be {want} {shape} on "
+                             f"{dev}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+    return mm
+
+
+def launch_contacts(fin: torch.Tensor, ls_in: torch.Tensor, cs: ContactState,
+                    num_cars: int, velocity_iters: int = C.VELOCITY_ITERS,
+                    position_iters: int = C.POSITION_ITERS):
+    """Launch K2 on packed car rows (from :func:`pack_inputs`, car index
+    e*num_cars + n) and the contact carry, on the current stream; returns
+    (fout (59, n), ls_out (4, n), new ContactState). Counts the launch in
+    ``island_step.contact_launches``."""
+    dev = fin.device
+    n_cars = fin.shape[1]
+    E = n_cars // num_cars
+    if (fin.dtype != torch.float32 or ls_in.dtype != torch.int32 or dev.type != "cuda"
+            or ls_in.device != dev or not fin.is_contiguous() or not ls_in.is_contiguous()
+            or num_cars < 2 or E * num_cars != n_cars
+            or tuple(fin.shape) != (IN_ROWS["N_IN"], n_cars)
+            or tuple(ls_in.shape) != (4, n_cars)):
+        raise ValueError("launch_contacts: expects contiguous CUDA float32 (71, E*N) rows "
+                         "and int32 (4, E*N) limit states, N >= 2")
+    mm = _check_contacts(cs, E, num_cars, dev)
+    pni, pti, pids = (cs.normal_imp.contiguous(), cs.tangent_imp.contiguous(),
+                      cs.ids.contiguous())
+    lib = _library(CONTACT_KERNEL)
+    ctab, itab = _contact_tables(dev, num_cars)
+    fout = torch.empty((OUT_ROWS["N_OUT"], n_cars), dtype=torch.float32, device=dev)
+    ls_out = torch.empty((4, n_cars), dtype=torch.int32, device=dev)
+    new = ContactState(normal_imp=torch.empty_like(pni), tangent_imp=torch.empty_like(pti),
+                       ids=torch.empty_like(pids))
+    k_vel = min(C.CONTACT_VELOCITY_ITERS, velocity_iters)
+    k_pos = min(C.CONTACT_POSITION_ITERS, position_iters)
+    with torch.cuda.device(dev):      # the stream and the launch belong to dev
+        rc = lib.contact_island_launch(
+            fin.data_ptr(), ls_in.data_ptr(), pni.data_ptr(), pti.data_ptr(),
+            pids.data_ptr(), fout.data_ptr(), ls_out.data_ptr(),
+            new.normal_imp.data_ptr(), new.tangent_imp.data_ptr(), new.ids.data_ptr(),
+            _params(dev).data_ptr(), ctab.data_ptr(), itab.data_ptr(),
+            E, num_cars, mm, int(velocity_iters), int(position_iters), k_vel, k_pos,
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if rc != 0:
+        msg = lib.contact_island_error_string(rc).decode()
+        raise RuntimeError(f"contact_island launch failed: {msg} ({rc})")
+    island_step.contact_launches += 1
+    return fout, ls_out, new
+
+
 def island_step(cars: CarState, wheel_on_road: torch.Tensor,
+                contact_state: ContactState,
                 velocity_iters: int = C.VELOCITY_ITERS,
                 position_iters: int = C.POSITION_ITERS):
-    """The joints-only island for every (env, car): kernel on CUDA tensors,
-    ``island_step_plain`` on CPU tensors. Returns (new CarState, skid)."""
+    """The island for every (env, car): K1 (one car per env) or K2 (two or
+    more) on CUDA tensors, ``island_step_plain`` on CPU tensors.
+
+    Returns (new CarState, skid (E, N, 4) bool, new ContactState)."""
     dev = cars.hull_a.device
     if dev.type == "cpu":
-        return island_step_plain(cars, wheel_on_road, velocity_iters,
+        return island_step_plain(cars, wheel_on_road, contact_state, velocity_iters,
                                  position_iters)
     if dev.type != "cuda":
         raise ValueError(f"island_step: unsupported device {dev}")
     E, N = _check(cars, wheel_on_road)
     fin, ls_in = pack_inputs(cars, wheel_on_road)
-    fout, ls_out = launch(fin, ls_in, E * N, velocity_iters, position_iters)
-    return unpack_outputs(cars, fout, ls_out)
+    if N == 1:
+        fout, ls_out = launch(fin, ls_in, E * N, velocity_iters, position_iters)
+        new_cs = contact_state
+    else:
+        fout, ls_out, new_cs = launch_contacts(fin, ls_in, contact_state, N,
+                                               velocity_iters, position_iters)
+    new_cars, skid = unpack_outputs(cars, fout, ls_out)
+    return new_cars, skid, new_cs
 
 
 island_step.launches = 0
+island_step.contact_launches = 0

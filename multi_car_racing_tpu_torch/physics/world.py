@@ -1,17 +1,17 @@
 """World step: velocity integration + constraint solve + position integration.
 
-Port of the JAX package's ``physics/world.py``, joints-only branch: the
-equivalent of ``world.Step(1/50, 180, 60)`` (mcr:428) for one hull and four
-wheels per car joined by revolute joints, with *no* collision response with
-track tiles (they are sensors). Gravity and body damping are zero.
+Port of the JAX package's ``physics/world.py``: the equivalent of
+``world.Step(1/50, 180, 60)`` (mcr:428) for one hull and four wheels per car
+joined by revolute joints, car-car polygon contacts (``collide.py``) at two
+or more cars per env, and *no* collision response with track tiles (they are
+sensors). Gravity and body damping are zero.
 
 Box2D's b2Island order is preserved:
   1. v += dt * invM * F (tire forces on wheels only; hulls receive none)
-  2. joint init/warm-start
-  3. velocity iterations: joints (Gauss-Seidel per car)
+  2. contact warm start, then joint init/warm-start
+  3. velocity iterations: joints (Gauss-Seidel per car), then contacts
   4. position integration with maxTranslation/maxRotation clamps
-  5. position iterations: joints
-Car-car contacts (N >= 2) belong to the next slice of the port.
+  5. position iterations: contacts, then joints
 """
 
 from __future__ import annotations
@@ -19,7 +19,7 @@ from __future__ import annotations
 import torch
 
 from .. import config as C
-from . import joints, shapes
+from . import collide, joints, shapes
 from .state import CarState
 from .joints import Velocities
 
@@ -49,15 +49,19 @@ def world_step(
     dt: float = C.DT,
     velocity_iters: int = C.VELOCITY_ITERS,
     position_iters: int = C.POSITION_ITERS,
-    contacts=None,
-) -> CarState:
-    """Returns the new CarState (joints-only island)."""
-    if contacts is not None:
-        raise NotImplementedError(
-            "car-car contacts are the next slice of the PyTorch port "
-            "(collide.py and the full-contact island kernel); this slice "
-            "steps one car per env"
-        )
+    contacts: collide.ContactBundle | None = None,
+) -> tuple[CarState, collide.ContactBundle | None]:
+    """Returns (new CarState, ``contacts`` with the solved impulses for the
+    warm-start carry); ``contacts`` is a ContactBundle at two or more cars
+    per env, or None for the joints-only island (returned as None).
+
+    The first ``C.CONTACT_VELOCITY_ITERS`` velocity iterations run joints
+    then contacts, the rest joints only; the first
+    ``C.CONTACT_POSITION_ITERS`` position iterations run contacts then
+    joints (both are the full counts: contacts interleave throughout)."""
+    n_cars = state.hull_a.shape[1]
+    if contacts is not None and n_cars < 2:
+        raise ValueError("world_step: car-car contacts need two or more cars per env")
     # --- 1. integrate velocities (forces only on wheels).
     vel = Velocities(
         hull_v=state.hull_v,
@@ -66,13 +70,24 @@ def world_step(
         wheel_w=state.wheel_w,
     )
 
-    # --- 2. init + warm start.
+    # --- 2. init + warm start (contacts first, then joints: b2Island order).
+    if contacts is not None:
+        vel = collide.warm_start(vel, contacts, n_cars)
     state, jdata = joints.init_constraints(state, motor_speed)
     vel = joints.warm_start(vel, jdata, state.joint_impulse, state.motor_impulse)
 
     # --- 3. velocity iterations.
+    k_vel = min(C.CONTACT_VELOCITY_ITERS, velocity_iters) if contacts is not None else 0
     carry = joints.split_velocities(vel, state.joint_impulse, state.motor_impulse)
-    for _ in range(velocity_iters):
+    if k_vel:
+        n_imp, t_imp = contacts.normal_imp, contacts.tangent_imp
+        for _ in range(k_vel):
+            carry = joints.velocity_iteration(carry, jdata, dt)
+            vel, j_imp, m_imp = joints.join_velocities(carry)
+            vel, n_imp, t_imp = collide.velocity_pass(vel, n_imp, t_imp, contacts, n_cars)
+            carry = joints.split_velocities(vel, j_imp, m_imp)
+        contacts = contacts.replace(normal_imp=n_imp, tangent_imp=t_imp)
+    for _ in range(velocity_iters - k_vel):
         carry = joints.velocity_iteration(carry, jdata, dt)
     vel, j_imp, m_imp = joints.join_velocities(carry)
 
@@ -86,9 +101,14 @@ def world_step(
         wheel_a=state.wheel_a + dt * ww,
     )
 
-    # --- 5. position iterations.
+    # --- 5. position iterations (contacts then joints, like b2Island).
+    k_pos = min(C.CONTACT_POSITION_ITERS, position_iters) if contacts is not None else 0
+    for _ in range(k_pos):
+        pos = collide.position_pass(pos, contacts, n_cars)
+        pos = joints.join_positions(
+            joints.position_iteration(joints.split_positions(pos), jdata))
     pcarry = joints.split_positions(pos)
-    for _ in range(position_iters):
+    for _ in range(position_iters - k_pos):
         pcarry = joints.position_iteration(pcarry, jdata)
     pos = joints.join_positions(pcarry)
 
@@ -96,4 +116,4 @@ def world_step(
         hull_c=pos.hull_c, hull_a=pos.hull_a, hull_v=hv, hull_w=hw,
         wheel_c=pos.wheel_c, wheel_a=pos.wheel_a, wheel_v=wv, wheel_w=ww,
         joint_impulse=j_imp, motor_impulse=m_imp,
-    )
+    ), contacts

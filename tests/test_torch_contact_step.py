@@ -1,0 +1,133 @@
+"""One physics step at two cars per env with live car-car contacts: the
+port's plain ``island_step`` against the JAX package's fused kernel
+``step_physics_batched`` (Pallas interpreter) and its XLA pipeline, from
+identical states, at tests/test_pallas_world.py's reduced 30/12 iterations.
+
+- Placed contacts: 3 envs whose car 1 is pushed 5 cm into car 0 (both
+  within 0.05 rad of the world axes, hull boxes stacked along world y),
+  closing on each other, with a warm-start carry that matches the current
+  manifold ids in two envs and not in the third.
+- tests/fixtures/contact_divergence_state.pkl, the head-on 2-car state with
+  five simultaneous contact points that once diverged on the TPU.
+
+Bars as tests/test_torch_contact_ram.py: every CarState field and both
+impulses within 5e-4 * max(1, max|jax|) and 5e-4 * max(1e-3, max|jax - pre|),
+ids, limit states and skid flags equal.
+
+At the full 180/60 iterations the divergence fixture's multi-point contact
+is chaotic within one step: the JAX package's own fused kernel and XLA
+pipeline disagree there past the step bar, and tests/test_pallas_world.py
+holds them to each other only within 0.5 m. There the port is held to that
+test's bar: finite, impulses bounded, hull positions within 0.5 m of the XLA
+pipeline."""
+
+import os
+import pickle
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from multi_car_racing_tpu.physics import collide as jcollide, pallas_world, shapes as jshapes
+from multi_car_racing_tpu.physics import state as jstate
+
+from multi_car_racing_tpu_torch import convert
+from multi_car_racing_tpu_torch.physics import fused_world
+from multi_car_racing_tpu_torch.physics.collide import ContactState
+
+from test_torch_collide import _place_pair
+from test_torch_contact_ram import VI, PI, assert_step_matches, xla_pipeline
+
+FIXTURE = os.path.join(os.path.dirname(__file__), "fixtures", "contact_divergence_state.pkl")
+
+
+def _placed_contacts():
+    """(JAX cars, wheel_on_road, ContactState) of 3 envs with live contacts."""
+    rng = np.random.RandomState(7)
+    E = 3
+    pos = rng.uniform(-300, 300, (E, 2, 2)).astype(np.float32)
+    ang = (np.pi * rng.randint(0, 2, (E, 2)) + rng.uniform(-0.05, 0.05, (E, 2))).astype(np.float32)
+    cars = jax.vmap(jstate.create_cars)(jnp.asarray(pos), jnp.asarray(ang))
+    # Wheels at their rotated anchors, so the joints start closed.
+    c, s = np.cos(ang)[..., None], np.sin(ang)[..., None]
+    wp = jshapes.WHEEL_POS[None, None]
+    wheel_c = pos[:, :, None, :] + np.stack([c * wp[..., 0] - s * wp[..., 1],
+                                             s * wp[..., 0] + c * wp[..., 1]], -1)
+    cars = cars.replace(wheel_c=jnp.asarray(wheel_c, jnp.float32))
+    cars = _place_pair(cars, -0.05)
+    # Closing at 2-8 m/s along world y (car 1 sits above car 0), sliding in x.
+    hull_v = rng.uniform(-3, 3, (E, 2, 2)).astype(np.float32)
+    hull_v[:, 0, 1] = rng.uniform(1, 4, E)
+    hull_v[:, 1, 1] = -rng.uniform(1, 4, E)
+    cars = cars.replace(
+        hull_v=jnp.asarray(hull_v), hull_w=jnp.asarray(rng.uniform(-1, 1, (E, 2)), jnp.float32),
+        wheel_v=jnp.asarray(np.repeat(hull_v[:, :, None], 4, 2), jnp.float32),
+        gas=jnp.asarray(rng.uniform(0, 1, (E, 2, 4)), jnp.float32),
+        steer=jnp.asarray(rng.uniform(-0.5, 0.5, (E, 2, 4)), jnp.float32),
+    )
+    ids = np.asarray(jax.vmap(lambda x: jcollide.collide(x, 2))(cars).ids).copy()
+    ids[2] = np.where(ids[2] >= 0, ids[2] + 1, -1)          # env 2: feature ids moved on
+    live = (ids >= 0)[..., None]
+    cs = jcollide.ContactState(
+        normal_imp=jnp.asarray(np.where(live, rng.uniform(0, 2, (E, 48, 2)), 0), jnp.float32),
+        tangent_imp=jnp.asarray(np.where(live, rng.uniform(-0.3, 0.3, (E, 48, 2)), 0),
+                                jnp.float32),
+        ids=jnp.asarray(ids, jnp.int32),
+    )
+    on_road = jnp.asarray(rng.rand(E, 2, 4) > 0.3)
+    return cars, on_road, cs
+
+
+def _load_fixture():
+    with open(FIXTURE, "rb") as f:
+        st_np, action = pickle.load(f)
+    st = jax.tree_util.tree_map(jnp.asarray, st_np)
+    cars = jstate.apply_controls(st.cars, jnp.asarray(action))
+    return (jax.tree_util.tree_map(lambda x: x[None], cars), st.wheel_on_road[None],
+            jax.tree_util.tree_map(lambda x: x[None], st.contacts))
+
+
+def _port(cars, on_road, cs):
+    return (convert.cars_from_numpy(jax.device_get(cars), device="cpu"),
+            torch.from_numpy(np.array(on_road)),
+            ContactState(*(torch.from_numpy(np.array(x)) for x in cs)))
+
+
+@pytest.fixture(scope="module")
+def states():
+    return {"placed": _placed_contacts(), "divergence_fixture": _load_fixture()}
+
+
+@pytest.mark.parametrize("ref", ["pallas_interpret", "xla"])
+@pytest.mark.parametrize("name", ["placed", "divergence_fixture"])
+def test_one_physics_step_matches_jax_at_two_cars(states, name, ref):
+    cars, on_road, cs = states[name]
+    if ref == "xla":
+        out = xla_pipeline(2, VI, PI)(cars, on_road, cs)
+    else:
+        out = pallas_world.step_physics_batched(cars, on_road, cs, 2, velocity_iters=VI,
+                                                position_iters=PI, interpret=True)
+    port = fused_world.island_step(*_port(cars, on_road, cs), VI, PI)
+    live = np.asarray(out[2].ids) >= 0
+    assert live.any(-1).all(), "setup: every env in contact"
+    assert float(jnp.abs(out[2].normal_imp).max()) > 0.1, "setup: no contact impulse"
+    if name == "placed":     # the carry is kept where the ids persist, dropped where not
+        kept = np.asarray(cs.ids) == np.asarray(out[2].ids)
+        assert kept[0].any() and kept[1].any() and not (kept[2] & live[2]).any()
+    assert_step_matches(out, port, cars, cs)
+
+
+def test_divergence_fixture_at_full_iterations_stays_bounded(states):
+    """180/60 iterations, as tests/test_pallas_world.py runs this state."""
+    cars, on_road, cs = states["divergence_fixture"]
+    p_cars, _, p_cs = fused_world.island_step(*_port(cars, on_road, cs), 180, 60)
+    for f in ("hull_c", "hull_a", "hull_v", "hull_w", "wheel_c", "wheel_v",
+              "joint_impulse", "motor_impulse"):
+        assert bool(torch.isfinite(getattr(p_cars, f)).all()), f
+    ni = p_cs.normal_imp.numpy()
+    assert np.isfinite(ni).all() and 0.1 < np.abs(ni).max() < 100.0, np.abs(ni).max()
+    ref = xla_pipeline(2, 180, 60)(cars, on_road, cs)[0]
+    d = np.abs(np.asarray(ref.hull_c) - p_cars.hull_c.numpy()).max()
+    assert d < 0.5, f"hull positions drifted {d} from XLA"

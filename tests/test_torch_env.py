@@ -159,12 +159,16 @@ def test_reset_batch_tiles_seeds_and_host_reset_agrees():
 
 
 def test_contact_slice_is_refused():
+    """Two cars per env now step; what stays refused is a state stepped under
+    another car count than its own, instead of a silently wrong broadcast."""
     cfg2 = EnvConfig(num_agents=2)
-    with pytest.raises(NotImplementedError, match="next slice"):
-        penv.reset_batch(cfg2, (0,), 1, device="cpu")
+    st2 = penv.reset_batch(cfg2, (0,), 1, device="cpu")
+    assert st2.cars.hull_c.shape == (1, 2, 2) and st2.contacts.ids.shape == (1, 48)
     st = penv.reset_batch(PCFG, (0,), 1, device="cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="num_agents=2"):
         penv.step(cfg2, st, torch.zeros((1, 2, 3)))
+    with pytest.raises(ValueError, match="expected actions"):
+        penv.step(cfg2, st2, torch.zeros((1, 1, 3)))
 
 
 @pytest.mark.parametrize("knob", ["track_skid", "exact_hull_touch"])

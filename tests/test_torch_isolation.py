@@ -35,7 +35,7 @@ sys.path.insert(0, {str(ROOT)!r})
 import multi_car_racing_tpu_torch
 from multi_car_racing_tpu_torch import config, convert, env, seeding, util, _cuda
 from multi_car_racing_tpu_torch.physics import (
-    fused_world, joints, overlap, shapes, state, tire, world)
+    collide, fused_world, joints, overlap, shapes, state, tire, world)
 from multi_car_racing_tpu_torch.track import common, host
 spec = importlib.util.spec_from_file_location("chip_smoke", {str(SMOKE)!r})
 mod = importlib.util.module_from_spec(spec)

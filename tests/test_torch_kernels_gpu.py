@@ -1,5 +1,5 @@
-"""The port's CUDA kernels against their plain PyTorch versions on an NVIDIA
-card. Imports no JAX, so it runs on a machine with the card and without JAX:
+"""The port's CUDA kernels (joints_island, K1; contact_island, K2) against
+their plain PyTorch versions on an NVIDIA card. Imports no JAX, so it runs on a machine with the card and without JAX:
 
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_kernels_gpu.py
 
@@ -42,8 +42,8 @@ def test_island_kernel_matches_plain_on_card(num_envs):
         state, _, _ = penv.step(cfg, state, act)
     before = fused_world.island_step.launches
     pre = apply_controls(state.cars, act)
-    k, ks = fused_world.island_step(pre, state.wheel_on_road)
-    p, ps = fused_world.island_step_plain(pre, state.wheel_on_road)
+    k, ks, _ = fused_world.island_step(pre, state.wheel_on_road, state.contacts)
+    p, ps, _ = fused_world.island_step_plain(pre, state.wheel_on_road, state.contacts)
     torch.cuda.synchronize()
     assert fused_world.island_step.launches == before + 1
     for f in CAR_FIELDS:
@@ -62,6 +62,74 @@ def test_island_wrapper_rejects_bad_inputs_on_card():
     state = penv.reset_batch(cfg, (0,), 4, device="cuda")
     with pytest.raises(ValueError):
         fused_world.island_step(state.cars.replace(hull_a=state.cars.hull_a.double()),
-                                state.wheel_on_road)
+                                state.wheel_on_road, state.contacts)
     with pytest.raises(ValueError):
-        fused_world.island_step(state.cars, state.wheel_on_road.float())
+        fused_world.island_step(state.cars, state.wheel_on_road.float(), state.contacts)
+
+
+def _k2_state(num_envs, num_cars, steps):
+    """A driven batch at ``num_cars`` cars per env and the next step's input."""
+    cfg = EnvConfig(num_agents=num_cars, use_random_direction=False)
+    state = penv.reset_batch(cfg, range(8), num_envs, device="cuda")
+    act = torch.as_tensor(np.random.RandomState(1).uniform(
+        [-1, 0, 0], [1, 1, 0.2], size=(num_envs, num_cars, 3)), dtype=torch.float32,
+        device="cuda")
+    for _ in range(steps):
+        state, _, _ = penv.step(cfg, state, act)
+    return apply_controls(state.cars, act), state.wheel_on_road, state.contacts
+
+
+def _assert_bars(name, ref, got, pre):
+    d = float((ref - got).abs().max())
+    assert d <= TOL * max(1.0, float(ref.abs().max())), name
+    assert d <= TOL * max(STEP_FLOOR, float((ref - pre).abs().max())), name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("num_envs,num_cars", [(1, 2), (300, 2), (64, 4)])
+def test_contact_kernel_matches_plain_on_card(num_envs, num_cars):
+    """contact_island (K2) against island_step_plain on the same card tensors
+    after 40 driven steps (some envs broadphase-near, some in contact; ragged
+    block edges included): every CarState field and both impulses within
+    both bars, ids and limit states equal but for threshold flips in at
+    most one env."""
+    _need_card()
+    pre, on_road, cs = _k2_state(num_envs, num_cars, 40)
+    before = fused_world.island_step.contact_launches
+    k, ks, kc = fused_world.island_step(pre, on_road, cs)
+    p, ps, pc = fused_world.island_step_plain(pre, on_road, cs)
+    torch.cuda.synchronize()
+    assert fused_world.island_step.contact_launches == before + 1
+    for f in CAR_FIELDS:
+        _assert_bars(f, getattr(p, f), getattr(k, f), getattr(pre, f))
+    _assert_bars("normal_imp", pc.normal_imp, kc.normal_imp, cs.normal_imp)
+    _assert_bars("tangent_imp", pc.tangent_imp, kc.tangent_imp, cs.tangent_imp)
+    assert torch.equal(k.limit_state, p.limit_state)
+    assert int((kc.ids != pc.ids).any(1).sum()) <= 1
+    assert int((ks != ps).sum()) <= 1
+
+
+@pytest.mark.gpu
+def test_contact_kernel_is_deterministic_and_sees_contacts():
+    _need_card()
+    pre, on_road, cs = _k2_state(512, 2, 40)
+    assert bool(fused_world.near_flags(pre).any())
+    fin, ls_in = fused_world.pack_inputs(pre, on_road)
+    a = fused_world.launch_contacts(fin, ls_in, cs, 2)
+    b = fused_world.launch_contacts(fin, ls_in, cs, 2)
+    for x, y in zip((a[0], a[1], a[2].normal_imp, a[2].tangent_imp, a[2].ids),
+                    (b[0], b[1], b[2].normal_imp, b[2].tangent_imp, b[2].ids)):
+        assert torch.equal(x, y)
+    assert bool((a[2].ids >= 0).any()) and float(a[2].normal_imp.max()) > 0
+
+
+@pytest.mark.gpu
+def test_contact_wrapper_rejects_bad_inputs_on_card():
+    _need_card()
+    pre, on_road, cs = _k2_state(4, 2, 1)
+    with pytest.raises(ValueError):
+        fused_world.island_step(pre, on_road, type(cs)(cs.normal_imp, cs.tangent_imp,
+                                                       cs.ids.long()))
+    with pytest.raises(ValueError):
+        fused_world.island_step(pre, on_road, type(cs)(cs.normal_imp[:, :47], cs.tangent_imp,
+                                                       cs.ids))

@@ -27,7 +27,8 @@ from multi_car_racing_tpu.track import host as jhost
 
 from multi_car_racing_tpu_torch import _cuda, convert
 from multi_car_racing_tpu_torch.physics import (
-    fused_world, joints as pjoints, state as pstate, tire as ptire, world as pworld,
+    collide as pcollide, fused_world, joints as pjoints, state as pstate, tire as ptire,
+    world as pworld,
 )
 
 SEEDS = (0, 3, 5, 8)
@@ -174,14 +175,16 @@ def test_joints_match(states):
 def test_world_step_matches(states):
     jc, jf, jm, pc, pf, pm = _joint_inputs(*states)
     j_new = jax.jit(jax.vmap(jworld.world_step))(jc, jf, jm)
-    p_new = pworld.world_step(pc, pf, pm)
+    p_new, p_bundle = pworld.world_step(pc, pf, pm)
+    assert p_bundle is None
     for f in CAR_FIELDS + ("limit_state",):
         _assert_close(f, getattr(j_new, f), _np(getattr(p_new, f)))
 
 
 def test_world_step_rejects_contacts(states):
+    """Car-car contacts need two cars per env: at one, a bundle is refused."""
     _, _, _, pc, pf, pm = _joint_inputs(*states)
-    with pytest.raises(NotImplementedError, match="next slice"):
+    with pytest.raises(ValueError, match="two or more cars"):
         pworld.world_step(pc, pf, pm, contacts=object())
 
 
@@ -196,17 +199,20 @@ def test_island_plain_matches_pallas_kernel(states):
         jcars, on_road, cs, 1, velocity_iters=vi, position_iters=pi,
         interpret=True, force_no_contacts=True,
     )
-    p_new, p_skid = fused_world.island_step_plain(pcars, p_on_road, vi, pi)
+    p_cs = pcollide.init_contact_state(len(SEEDS), 1)
+    p_new, p_skid, p_cs2 = fused_world.island_step_plain(pcars, p_on_road, p_cs, vi, pi)
     for f in CAR_FIELDS + ("limit_state",):
         _assert_close(f, getattr(j_new, f), _np(getattr(p_new, f)))
     _assert_close("skid", j_skid, _np(p_skid))
+    assert p_cs2 is p_cs          # one car per env: the contact carry passes through
 
 
 def test_island_step_on_cpu_is_the_plain_version(states):
     _, _, pcars, p_on_road = states
     before = fused_world.island_step.launches
-    a, sa = fused_world.island_step(pcars, p_on_road, 20, 8)
-    b, sb = fused_world.island_step_plain(pcars, p_on_road, 20, 8)
+    cs = pcollide.init_contact_state(len(SEEDS), 1)
+    a, sa, _ = fused_world.island_step(pcars, p_on_road, cs, 20, 8)
+    b, sb, _ = fused_world.island_step_plain(pcars, p_on_road, cs, 20, 8)
     assert fused_world.island_step.launches == before
     for f in CAR_FIELDS + ("limit_state",):
         assert torch.equal(getattr(a, f), getattr(b, f)), f
@@ -214,7 +220,9 @@ def test_island_step_on_cpu_is_the_plain_version(states):
 
 
 def _cu_source():
-    return (Path(fused_world.__file__).parent.parent / "csrc" / "joints_island.cu").read_text()
+    """The kernel's source with the per-car chain header it includes."""
+    csrc = Path(fused_world.__file__).parent.parent / "csrc"
+    return (csrc / "car_chain.cuh").read_text() + (csrc / "joints_island.cu").read_text()
 
 
 def test_kernel_layout_matches_wrapper():
