@@ -1,22 +1,29 @@
 """multi_car_racing_tpu_torch — the PyTorch / CUDA port of multi_car_racing_tpu.
 
 A package of its own beside the JAX one: it imports PyTorch, never JAX, and
-nothing of ``multi_car_racing_tpu``. This slice steps E lockstep envs with
-one car each (CarRacing-v0) on an NVIDIA card, the fused physics stage
-running in the hand-written CUDA kernel ``csrc/joints_island.cu``:
+nothing of ``multi_car_racing_tpu``. It steps E lockstep envs of
+CarRacing-v0 (one car) or MultiCarRacing-v0 (``num_agents`` >= 2 cars, with
+car-car contacts) on an NVIDIA card, through hand-written CUDA kernels: the
+physics island (``csrc/joints_island.cu`` at one car per env,
+``csrc/contact_island.cu`` at two or more) and the track stage
+(``csrc/track_pass.cu``). For rollouts it adds state observations and
+autoreset from a pool of host tracks:
 
-    from multi_car_racing_tpu_torch import EnvConfig, env
-    cfg = EnvConfig(num_agents=1, use_random_direction=False)
+    from multi_car_racing_tpu_torch import EnvConfig, env, obs
+    cfg = EnvConfig(num_agents=2)
     state = env.reset_batch(cfg, seeds=range(16), num_envs=4096)   # on CUDA
-    state, reward, done = env.step(cfg, state, actions)            # (E, 1, 3)
+    state, reward, done = env.step(cfg, state, actions)            # (E, 2, 3)
+    features = obs.state_observation(state)                         # (E, 2, 38)
+    pool = env.make_track_pool(cfg, seeds=range(32))
+    state = env.reset_done_envs(cfg, state, pool, torch.Generator("cuda"))
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``, where
 every kernel is replaced by its plain PyTorch version. Kernels build with
 nvcc at first use; importing the package builds nothing.
 """
 
-from . import config, convert, env
+from . import config, convert, env, obs
 from .config import EnvConfig
 
 __version__ = "0.1.0"
-__all__ = ["config", "convert", "env", "EnvConfig"]
+__all__ = ["config", "convert", "env", "obs", "EnvConfig"]

@@ -144,6 +144,7 @@ class EnvConfig:
     track_skid: bool = False          # maintain skid-particle trails (render-only)
     velocity_iters: int = VELOCITY_ITERS
     position_iters: int = POSITION_ITERS
+    max_episode_steps: int = MAX_EPISODE_STEPS   # time limit of reset_done_envs
 
     def __post_init__(self):
         if self.direction not in ("CCW", "CW"):

@@ -11,12 +11,16 @@ Step order preserves the reference's (mcr:410-509 + Box2D internals):
      forces from the *lagged* tile contacts (Box2D collides at the start of
      world.Step), car-car manifolds with their warm-start carry, joint limit
      init, constraint solve + integration
-  3. the track stage on the pre-solve pose: wheel-tile SAT (friction mask
-     for the next step), tile-visit rewards (FrictionDetector, mcr:80-123),
-     render color flattening; then nearest-tile heading and the on-grass
-     flag on the post-solve pose
+  3. the track stage (``physics/track_engine.track_pass``) on the pre-solve
+     pose: wheel-tile SAT (friction mask for the next step), tile-visit
+     rewards (FrictionDetector, mcr:80-123), render color flattening; then
+     nearest-tile heading and the on-grass flag on the post-solve pose
   4. post-step analysis: -0.1 step cost, backward/on-grass flags,
      all-tiles-visited / off-playfield termination (mcr:433-508)
+
+Episode management for batched rollouts: ``make_track_pool`` stacks host
+tracks, ``reset_done_envs`` puts fresh episodes drawn from the pool into the
+envs that are done or past ``cfg.max_episode_steps``.
 
 Skid trails and the exact hull-touch flag belong to the rendering slice:
 ``step`` raises ``NotImplementedError`` for them rather than computing
@@ -34,9 +38,9 @@ import torch
 
 from . import config as C
 from . import seeding
-from .physics import overlap
 from .physics.collide import ContactState, init_contact_state
 from .physics.fused_world import island_step
+from .physics.track_engine import track_pass
 from .physics.state import CarState, apply_controls, create_cars
 from .track import host as track_host
 from .track.common import Track, pack_track_arrays, track_from_arrays
@@ -118,69 +122,15 @@ def _episode_start(cars: CarState, track: Track, direction_cw: torch.Tensor,
     )
 
 
-def _contact_pass(cars: CarState, track: Track):
-    """The Collide() equivalent on the given (pre-solve) pose: returns
-    (wheel_on_road (E,N,4), car_tile (E,N,MT), touched (E,MT)).
-
-    The render-only "touched" flag includes hull contact approximated by the
-    hull *center* being inside a tile."""
-    wheel_ov = overlap.wheel_tile_overlap(cars, track)        # (E, N, 4, MT)
-    wheel_on_road = wheel_ov.any(-1)
-    car_tile = wheel_ov.any(2)                                # (E, N, MT)
-    hull_in = overlap.point_in_quads_T(cars.hull_origin, track.quad_T)
-    touched = (car_tile | hull_in).any(1)
-    return wheel_on_road, car_tile, touched
-
-
-def _visit_rewards(track: Track, visited: torch.Tensor, car_tile: torch.Tensor,
-                   num_agents: int):
-    """FrictionDetector begin-contact bookkeeping (mcr:110-120):
-    reward += (1 - past_visitors / num_agents) * 1000 / len(track) for each
-    first visit, with car-id ordering for same-step ties (lowest id counts as
-    the earlier visitor). Returns (bonus (E,N), new visited, count (E,N))."""
-    f32 = track.xy.dtype
-    new = car_tile & ~visited & track.valid[:, None, :]        # (E, N, MT)
-    prev_count = visited.sum(dim=1, dtype=torch.int32)        # (E, MT)
-    new_i = new.to(torch.int32)
-    rank = torch.cumsum(new_i, dim=1, dtype=torch.int32) - new_i   # exclusive
-    past = prev_count[:, None, :] + rank
-    factor = 1.0 - past.to(f32) / num_agents
-    tile_bonus = 1000.0 / track.n_tiles.to(f32)               # (E,)
-    bonus = torch.sum(new.to(f32) * factor, dim=2) * tile_bonus[:, None]
-    cnt = new.sum(dim=2, dtype=torch.int32)
-    return bonus, visited | new, cnt
-
-
-def _track_stage(track: Track, pre_cars: CarState, post_origin: torch.Tensor,
-                 visited: torch.Tensor, tile_touched: torch.Tensor,
-                 num_agents: int):
-    """The per-step track stage: contact SAT + visit rewards + render
-    flattening on the pre-solve pose, nearest-tile heading + on-grass on the
-    post-solve ``post_origin`` (mcr:446-495). Plain PyTorch ops, as the JAX
-    package leaves this stage to XLA by default."""
-    wheel_on_road, car_tile, touched = _contact_pass(pre_cars, track)
-    bonus, new_visited, cnt = _visit_rewards(track, visited, car_tile, num_agents)
-
-    diff = post_origin[:, :, None, :] - track.xy[:, None, :, :]   # (E, N, MT, 2)
-    d2 = torch.sum(torch.square(diff), dim=-1)
-    d2 = torch.where(track.valid[:, None, :], d2, torch.full_like(d2, math.inf))
-    nearest = torch.argmin(d2, dim=2)                         # (E, N)
-    nearest_beta = torch.gather(track.beta, 1, nearest)
-    in_road = overlap.point_in_quads_T(post_origin, track.quad_T)
-    in_curb = overlap.point_in_quads_T(post_origin, track.curb_quad_T)
-    on_grass = ~(in_road.any(-1) | in_curb.any(-1))
-    return (wheel_on_road, new_visited, bonus, cnt, tile_touched | touched,
-            nearest_beta, on_grass)
-
-
 def _physics_and_contacts(state: EnvState, cfg: C.EnvConfig):
-    """The reset tick's stages: contact pass + rewards on the pre-step pose,
-    then the fused physics stage with the lagged contact mask."""
+    """The reset tick's stages: contact pass + rewards on the pre-step pose
+    (the track pass, its post-pose outputs unused), then the fused physics
+    stage with the lagged contact mask."""
     _check_supported(cfg)
     lagged = state.wheel_on_road
-    wheel_on_road, car_tile, touched = _contact_pass(state.cars, state.track)
-    bonus, visited, cnt = _visit_rewards(state.track, state.visited, car_tile,
-                                         cfg.num_agents)
+    wheel_on_road, visited, bonus, cnt, tile_touched, _, _ = track_pass(
+        state.track, state.cars, state.cars.hull_origin, state.visited,
+        state.tile_touched, cfg.num_agents)
     cars, _, contacts = island_step(state.cars, lagged, state.contacts,
                                     cfg.velocity_iters, cfg.position_iters)
     return state.replace(
@@ -190,7 +140,7 @@ def _physics_and_contacts(state: EnvState, cfg: C.EnvConfig):
         visited=visited,
         tile_visited_count=state.tile_visited_count + cnt,
         wheel_on_road=wheel_on_road,
-        tile_touched=state.tile_touched | touched,
+        tile_touched=tile_touched,
         t=state.t + C.DT,
         steps=state.steps + 1,
     ), bonus
@@ -245,11 +195,10 @@ def _post_step(state: EnvState, cfg: C.EnvConfig, gain: torch.Tensor,
     return state, step_reward, done
 
 
-def reset_from_parts(cfg: C.EnvConfig, track: Track, car_order: torch.Tensor,
-                     direction_cw: torch.Tensor) -> EnvState:
-    """Spawn cars on the grid of each of E tracks, then run the reference's
-    ``step(None)`` — one physics tick with no controls, during which
-    spawn-tile visits pay their bonuses (mcr:408).
+def spawn_state(cfg: C.EnvConfig, track: Track, car_order: torch.Tensor,
+                direction_cw: torch.Tensor) -> EnvState:
+    """The episode-start state before the spawn tick: cars on the grid of
+    each of E tracks (mcr:366-401), every mask and score zero.
 
     ``car_order`` (E, N) int; ``direction_cw`` (E,) bool; both on the
     track's device."""
@@ -266,12 +215,18 @@ def reset_from_parts(cfg: C.EnvConfig, track: Track, car_order: torch.Tensor,
     pos = xy + C.LATERAL_SPACING * torch.stack(
         [torch.sin(norm_theta) * side, torch.cos(norm_theta) * side], dim=-1
     )
-    state = _episode_start(create_cars(pos, angle), track, direction_cw,
-                           cfg.num_agents)
+    return _episode_start(create_cars(pos, angle), track, direction_cw, cfg.num_agents)
+
+
+def reset_from_parts(cfg: C.EnvConfig, track: Track, car_order: torch.Tensor,
+                     direction_cw: torch.Tensor) -> EnvState:
+    """Spawn cars on the grid of each of E tracks (``spawn_state``), then
+    run the reference's ``step(None)`` — one physics tick with no controls,
+    during which spawn-tile visits pay their bonuses (mcr:408)."""
     # step(None): physics + contacts only — no action, no reward stage. The
     # spawn-tile bonuses land in reward but not prev_reward, so the first
     # real step's carry term surfaces them.
-    state, _ = _physics_and_contacts(state, cfg)
+    state, _ = _physics_and_contacts(spawn_state(cfg, track, car_order, direction_cw), cfg)
     return state
 
 
@@ -291,8 +246,8 @@ def step(cfg: C.EnvConfig, state: EnvState, action: torch.Tensor):
     new_cars, _, contacts = island_step(pre_cars, state.wheel_on_road, state.contacts,
                                         cfg.velocity_iters, cfg.position_iters)
     (wheel_on_road, visited, bonus, cnt, tile_touched, nearest_beta,
-     on_grass) = _track_stage(state.track, pre_cars, new_cars.hull_origin,
-                              state.visited, state.tile_touched, cfg.num_agents)
+     on_grass) = track_pass(state.track, pre_cars, new_cars.hull_origin,
+                            state.visited, state.tile_touched, cfg.num_agents)
     state = state.replace(
         cars=new_cars,
         contacts=contacts,
@@ -365,3 +320,79 @@ def reset_batch(cfg: C.EnvConfig, seeds: Sequence[int], num_envs: int,
     )
     idx = torch.arange(num_envs, device=dev) % len(seeds)
     return tree_map(lambda x: x.index_select(0, idx), state)
+
+
+def make_track_pool(cfg: C.EnvConfig, seeds: Sequence[int], device=None) -> Track:
+    """A pool of ``len(seeds)`` tracks stacked on ``device`` (default CUDA),
+    for autoreset: ``reset_done_envs`` draws each fresh episode's track from
+    it instead of generating one.
+
+    The tracks come from the bit-exact host generator (``track/host.py`` ->
+    ``pack_track_arrays`` -> ``track_from_arrays``), one per seed. This
+    stands in for the JAX package's on-device pool (``make_track_pool``,
+    threefry track generation on the device) until that generator is
+    ported."""
+    dev = resolve_device(device)
+    seeds = list(seeds)
+    if not seeds:
+        raise ValueError("make_track_pool needs at least one seed")
+    arrays = []
+    for seed in seeds:
+        pts, border, _ = track_host.generate_track(seeding.np_random(seed)[0])
+        arrays.append(pack_track_arrays(pts, border, cfg.max_tiles))
+    return track_from_arrays(arrays, dev)
+
+
+def draw_episodes(cfg: C.EnvConfig, num_envs: int, pool_size: int,
+                  generator: torch.Generator):
+    """Draws, from ``generator`` and on its device, each env's next episode:
+    (pool index (E,) int64, uniform over the pool; car order (E, N) int32, a
+    permutation; direction_cw (E,) bool, a fair coin when
+    ``cfg.use_random_direction``, else ``cfg.direction``).
+
+    The same distributions as the JAX package's ``reset_done_envs`` draws
+    (``track/device.py::episode_params``), not the same numbers: JAX draws
+    with threefry."""
+    dev = generator.device
+    idx = torch.randint(0, pool_size, (num_envs,), generator=generator, device=dev)
+    keys = torch.rand((num_envs, cfg.num_agents), generator=generator, device=dev)
+    orders = torch.argsort(keys, dim=1).to(torch.int32)
+    if cfg.use_random_direction:
+        dirs = torch.rand((num_envs,), generator=generator, device=dev) < 0.5
+    else:
+        dirs = torch.full((num_envs,), cfg.direction == "CW", device=dev)
+    return idx, orders, dirs
+
+
+def reset_envs_from_pool(cfg: C.EnvConfig, state: EnvState, pool: Track,
+                         idx: torch.Tensor, orders: torch.Tensor,
+                         dirs: torch.Tensor) -> EnvState:
+    """Fresh episodes (``reset_from_parts`` on pool tracks ``idx`` with
+    ``orders`` and ``dirs``) in the envs where ``done`` or ``steps >=
+    cfg.max_episode_steps``; the other envs keep their state bit for bit.
+
+    As in the JAX package's ``reset_done_envs``, the fresh episode is
+    computed for all E envs (one spawn tick) and selected leaf by leaf."""
+    fresh = reset_from_parts(cfg, tree_map(lambda x: x.index_select(0, idx), pool),
+                             orders, dirs)
+    needs = state.done | (state.steps >= cfg.max_episode_steps)
+
+    def pick(new: torch.Tensor, old: torch.Tensor) -> torch.Tensor:
+        return torch.where(needs.view((-1,) + (1,) * (new.dim() - 1)), new, old)
+
+    return tree_map(pick, fresh, state)
+
+
+def reset_done_envs(cfg: C.EnvConfig, state: EnvState, pool: Track,
+                    generator: torch.Generator) -> EnvState:
+    """Replace done (or time-limited) envs with fresh episodes drawn from
+    the track pool (``draw_episodes`` then ``reset_envs_from_pool``). Call
+    between rollout chunks: done envs keep stepping harmlessly inside a
+    chunk, as the reference env does after completion. ``generator`` lives
+    on the state's device."""
+    g, dev = generator.device, state.steps.device
+    if g.type != dev.type or (g.index is not None and g.index != dev.index):
+        raise ValueError(f"reset_done_envs: a generator on {g} for a state on {dev}")
+    idx, orders, dirs = draw_episodes(cfg, state.steps.shape[0], pool.n_tiles.shape[0],
+                                      generator)
+    return reset_envs_from_pool(cfg, state, pool, idx, orders, dirs)

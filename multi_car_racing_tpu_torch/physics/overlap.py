@@ -16,8 +16,8 @@ import torch
 from .. import config as C
 from .state import CarState, wheel_forward_side
 
-_WHEEL_HX = float(C.WHEEL_W * C.SIZE)   # rect half-width along local x (side)
-_WHEEL_HY = float(C.WHEEL_R * C.SIZE)   # rect half-height along local y (forw)
+WHEEL_HX = float(C.WHEEL_W * C.SIZE)   # rect half-width along local x (side)
+WHEEL_HY = float(C.WHEEL_R * C.SIZE)   # rect half-height along local y (forw)
 
 
 def wheel_tile_overlap(
@@ -36,7 +36,7 @@ def wheel_tile_overlap(
 
     sep = None
     # --- wheel's own axes (side: half-extent HX, forw: HY).
-    for ax, h in ((side, _WHEEL_HX), (forw, _WHEEL_HY)):
+    for ax, h in ((side, WHEEL_HX), (forw, WHEEL_HY)):
         axx, axy = ax[..., 0:1], ax[..., 1:2]          # (E, N, 4, 1)
         cp = c[..., 0:1] * axx + c[..., 1:2] * axy     # (E, N, 4, 1)
         lo_b = hi_b = None
@@ -54,7 +54,7 @@ def wheel_tile_overlap(
         cp = c[..., 0:1] * axx + c[..., 1:2] * axy     # (E, N, 4, MT)
         sp = side[..., 0:1] * axx + side[..., 1:2] * axy
         fp = forw[..., 0:1] * axx + forw[..., 1:2] * axy
-        r = _WHEEL_HX * torch.abs(sp) + _WHEEL_HY * torch.abs(fp)
+        r = WHEEL_HX * torch.abs(sp) + WHEEL_HY * torch.abs(fp)
         lo = track.quad_lo[:, a][:, None, None]
         hi = track.quad_hi[:, a][:, None, None]
         g = torch.maximum(lo - (cp + r), (cp - r) - hi)

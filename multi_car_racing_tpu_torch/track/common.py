@@ -152,10 +152,13 @@ def pack_track_arrays(
 
 def track_from_arrays(arrays: list, device=None) -> Track:
     """Stack per-track numpy arrays (from :func:`pack_track_arrays`) into a
-    Track of E = len(arrays) envs on ``device`` (default CUDA)."""
+    Track of E = len(arrays) envs on ``device`` (default CUDA). Every tensor
+    is contiguous in its documented layout (the tiles-last tables are
+    transposes in numpy), as the track-pass kernel reads them."""
     dev = resolve_device(device)
     return Track(**{
-        f.name: torch.from_numpy(np.stack([a[f.name] for a in arrays])).to(dev)
+        f.name: torch.from_numpy(np.ascontiguousarray(np.stack([a[f.name] for a in arrays])))
+        .to(dev)
         for f in dataclasses.fields(Track)
     })
 

@@ -24,14 +24,16 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
     return dev
 
 
-def tree_map(fn: Callable[[Any], Any], obj: Any) -> Any:
-    """Apply ``fn`` to every leaf of a (nested) dataclass."""
+def tree_map(fn: Callable[..., Any], obj: Any, *rest: Any) -> Any:
+    """Apply ``fn`` to every leaf of a (nested) dataclass, or to the leaves
+    at the same place in ``obj`` and each tree of ``rest``."""
     if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
         return dataclasses.replace(obj, **{
-            f.name: tree_map(fn, getattr(obj, f.name))
+            f.name: tree_map(fn, getattr(obj, f.name),
+                             *(getattr(r, f.name) for r in rest))
             for f in dataclasses.fields(obj)
         })
-    return fn(obj)
+    return fn(obj, *rest)
 
 
 def tree_leaves(obj: Any) -> list:

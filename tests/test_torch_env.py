@@ -178,11 +178,23 @@ def test_render_knobs_are_refused(knob):
         penv.reset_batch(cfg, (0,), 1, device="cpu")
 
 
-@pytest.mark.parametrize("field", ["auto_reset", "dtype", "obs_type", "max_episode_steps",
-                                   "backwards_flag"])
+@pytest.mark.parametrize("field", ["auto_reset", "dtype", "obs_type", "backwards_flag"])
 def test_config_has_no_field_the_port_does_not_read(field):
     """A JAX-package knob this slice does not implement is not a field of the
     port's config, so setting it fails instead of being ignored."""
     assert field in {f.name for f in dataclasses.fields(JC.EnvConfig)}
     with pytest.raises(TypeError):
         EnvConfig(**{field: getattr(JC.EnvConfig(), field)})
+
+
+def test_max_episode_steps_is_read_by_reset_done_envs():
+    """``max_episode_steps`` is a field of the port's config, with the JAX
+    package's default, and ``env.reset_done_envs`` resets at that limit: a
+    fresh state (steps == 1) is reset at a limit of 1 and kept at 2."""
+    assert EnvConfig().max_episode_steps == JC.EnvConfig().max_episode_steps
+    pool = penv.make_track_pool(PCFG, (5,), device="cpu")
+    for limit, reset in ((1, True), (2, False)):
+        cfg = dataclasses.replace(PCFG, max_episode_steps=limit)
+        st = penv.reset_batch(cfg, (0,), 1, device="cpu")     # steps == 1
+        out = penv.reset_done_envs(cfg, st, pool, torch.Generator().manual_seed(0))
+        assert torch.equal(out.track.xy, (pool if reset else st.track).xy)

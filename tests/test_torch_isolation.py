@@ -33,9 +33,9 @@ for name in ("jax", "jaxlib", "flax"):
     sys.modules[name] = None          # any import of them now raises
 sys.path.insert(0, {str(ROOT)!r})
 import multi_car_racing_tpu_torch
-from multi_car_racing_tpu_torch import config, convert, env, seeding, util, _cuda
+from multi_car_racing_tpu_torch import config, convert, env, obs, seeding, util, _cuda
 from multi_car_racing_tpu_torch.physics import (
-    collide, fused_world, joints, overlap, shapes, state, tire, world)
+    collide, fused_world, joints, overlap, shapes, state, tire, track_engine, world)
 from multi_car_racing_tpu_torch.track import common, host
 spec = importlib.util.spec_from_file_location("chip_smoke", {str(SMOKE)!r})
 mod = importlib.util.module_from_spec(spec)

@@ -1,17 +1,19 @@
-"""The port's CUDA kernels (joints_island, K1; contact_island, K2) against
-their plain PyTorch versions on an NVIDIA card. Imports no JAX, so it runs on a machine with the card and without JAX:
+"""The port's CUDA kernels (joints_island, K1; contact_island, K2;
+track_pass, K4/K5) against their plain PyTorch versions on an NVIDIA card. Imports no JAX, so it runs on a machine with the card and without JAX:
 
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_kernels_gpu.py
 
 (``--noconftest``: the repository's conftest.py configures JAX.) Without a
 card every test here skips."""
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
 from multi_car_racing_tpu_torch import EnvConfig, env as penv
-from multi_car_racing_tpu_torch.physics import fused_world
+from multi_car_racing_tpu_torch.physics import fused_world, track_engine
 from multi_car_racing_tpu_torch.physics.state import apply_controls
 
 TOL = 5e-4
@@ -133,3 +135,70 @@ def test_contact_wrapper_rejects_bad_inputs_on_card():
     with pytest.raises(ValueError):
         fused_world.island_step(pre, on_road, type(cs)(cs.normal_imp[:, :47], cs.tangent_imp,
                                                        cs.ids))
+
+
+def _track_inputs(num_envs, num_cars, steps):
+    """The track pass's inputs of the next step of a driven batch: (track,
+    pre-solve cars, post-solve origin, visited, tile_touched)."""
+    cfg = EnvConfig(num_agents=num_cars)
+    state = penv.reset_batch(cfg, range(8), num_envs, device="cuda")
+    act = torch.as_tensor(np.random.RandomState(2).uniform(
+        [-1, 0, 0], [1, 1, 0.2], size=(num_envs, num_cars, 3)), dtype=torch.float32,
+        device="cuda")
+    for _ in range(steps):
+        state, _, _ = penv.step(cfg, state, act)
+    pre = apply_controls(state.cars, act)
+    post, _, _ = fused_world.island_step(pre, state.wheel_on_road, state.contacts)
+    return state.track, pre, post.hull_origin, state.visited, state.tile_touched
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("num_cars", [1, 2, 4])
+@pytest.mark.parametrize("num_envs", [1, 37, 4096])
+def test_track_kernel_matches_plain_on_card(num_envs, num_cars):
+    """track_pass (K4/K5) against track_pass_plain on the same card tensors
+    after 12 driven steps: wheel_on_road, visited, tile_touched, on_grass,
+    count and nearest_beta equal, bonus within 2e-5; two launches
+    bit-identical."""
+    _need_card()
+    args = _track_inputs(num_envs, num_cars, 12)
+    before = track_engine.track_pass.launches
+    k = track_engine.track_pass(*args, num_cars)
+    k2 = track_engine.track_pass(*args, num_cars)
+    p = track_engine.track_pass_plain(*args, num_cars)
+    torch.cuda.synchronize()
+    assert track_engine.track_pass.launches == before + 2
+    for name, a, b, c in zip(("wheel_on_road", "visited", "bonus", "count", "tile_touched",
+                              "nearest_beta", "on_grass"), k, p, k2):
+        assert torch.equal(a, c), name
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        if name == "bonus":
+            assert float((a - b).abs().max()) <= 2e-5, name
+        else:
+            assert torch.equal(a, b), name
+    assert bool(p[0].any())          # some wheel on the road
+
+
+@pytest.mark.gpu
+def test_track_wrapper_rejects_bad_inputs_on_card():
+    _need_card()
+    track, pre, post, visited, touched = _track_inputs(4, 2, 1)
+    strided = track.quad_T.transpose(1, 2).contiguous().transpose(1, 2)
+    assert strided.shape == track.quad_T.shape and not strided.is_contiguous()
+    with pytest.raises(ValueError, match="contiguous"):
+        track_engine.track_pass(dataclasses.replace(track, quad_T=strided), pre, post, visited, touched, 2)
+    with pytest.raises(ValueError):
+        track_engine.track_pass(dataclasses.replace(track, quad_lo=track.quad_lo.double()), pre, post,
+                                visited, touched, 2)
+    with pytest.raises(ValueError):
+        track_engine.track_pass(track, pre, post, visited.to(torch.uint8), touched, 2)
+    with pytest.raises(ValueError):
+        track_engine.track_pass(track, pre, post, visited[:, :, :-1].contiguous(), touched, 2)
+    with pytest.raises(ValueError):
+        track_engine.track_pass(track, pre, post, visited, touched, 3)
+    # The caps are the C entry point's: 33 cars is refused with CUDA's message.
+    wheels = torch.zeros((4, 33, 4, 6), device="cuda")
+    origins = torch.zeros((4, 33, 4), device="cuda")
+    many = torch.zeros((4, 33, visited.shape[-1]), dtype=torch.bool, device="cuda")
+    with pytest.raises(RuntimeError, match="invalid argument"):
+        track_engine.launch(track, wheels, origins, many, touched)
