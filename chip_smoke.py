@@ -19,9 +19,14 @@ and in both, every step's and every spawn tick's track stage runs in
 on-grass). A third path is the env side of a state-PPO rollout at N = 2:
 64-step chunks with ``obs.state_observation`` on every step and
 ``env.reset_done_envs`` from a pool of 32 host tracks between chunks, past
-the 1000-step time limit.
+the 1000-step time limit. The pixel paths: ``obs.pixel_observation_batched``
+after every step of ``bench.py``'s pixel workload (E = 4096, N = 2), and the
+env side of a pixel-PPO rollout (E = 1024, N = 2, a frame per decision of 4
+steps, autoreset between chunks), where every frame is one launch of
+``csrc/paint_view.cu`` (K6: the 96x96 painter, one block per view, each view
+branching on its own warm-up flag).
 
-The three kernels are built with nvcc at first use from the sources in the
+The four kernels are built with nvcc at first use from the sources in the
 checkout, one nvcc per kernel, started together.
 
 Phases (each prints a line as it starts; any failure exits nonzero). The
@@ -32,7 +37,7 @@ on coordinates of hundreds of metres), limit states equal. The track bars
 (tests/test_track_engine.py's): wheel_on_road, visited, tile_touched,
 on_grass, count and nearest_beta equal, bonus within 2e-5.
   1. device: the card's name and power limit; no CUDA device -> exit 2
-  2. build: the three kernels' build times and ptxas register/spill lines
+  2. build: the four kernels' build times and ptxas register/spill lines
   3. K1 vs plain: one island step through K1 and through its plain PyTorch
      version on the same card tensors at N = 1, E = 4096, after 20 driven
      steps; both bars; skid flags differing bounded
@@ -61,7 +66,28 @@ on_grass, count and nearest_beta equal, bonus within 2e-5.
      the first reset plus the steps plus the reset ticks, K1's count and the
      plain track pass's calls on the card are 0; env-steps/s and the ms of
      observations and of resets per chunk
- 12. the kernels JSON line, the nvidia-smi line, and the result line
+ 12. K6 vs plain, every byte equal, and two launches bit-identical: at N = 2,
+     E = 4096, the spawn tick (every view warm), a state driven 60 steps
+     (steady), a mixed batch after reset_done_envs refreshed a third of the
+     envs, and that state with driving_backward set in a third of the views
+     (the flag); at N = 1 with CW direction (E = 1024) and at N = 4 with
+     use_ego_color (E = 512), on the spawn tick and after 60 steps; then the
+     five 96x96 golden frames (tests/fixtures/golden, loaded through
+     convert.env_state_from_leaves), byte for byte
+ 13. pixel main path: bench.py's pixel workload (random direction per
+     track) -- reset + 10 warm-up + 100 timed steps at E = 4096, N = 2 with
+     a frame after the reset and after every step; K6's count equals the
+     111 frames and the plain painter ran 0 times on the card; env-steps/s
+     with frames, K6's ms per launch (CUDA events over 50 launches) on the
+     last state (steady) and on the spawn tick, its bounds (paint_work) and
+     the plain painter's ms, the view_inputs ms, and a stage table
+ 14. pixel-PPO env side at E = 1024, N = 2 (learner/ppo.py's pixel shape):
+     a pool of 32 host tracks, chunks of 32 decisions with action repeat 4
+     (128 steps, a frame per decision), reset_done_envs between chunks, 9
+     chunks = 1152 steps past the 1000-step limit, so warm and steady views
+     mix within launches; K6 = frames, K2 = K4/K5 = 1 + steps + reset ticks,
+     K1 and the plain painter 0; env-steps/s and the frame ms per chunk
+ 15. the kernels JSON line, the nvidia-smi line, and the result line
 
 The script imports nothing of JAX or of the JAX package.
 """
@@ -80,8 +106,9 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
-from multi_car_racing_tpu_torch import EnvConfig, _cuda  # noqa: E402
+from multi_car_racing_tpu_torch import EnvConfig, _cuda, convert  # noqa: E402
 from multi_car_racing_tpu_torch import env as penv, obs as pobs, seeding  # noqa: E402
+from multi_car_racing_tpu_torch.render import pixels  # noqa: E402
 from multi_car_racing_tpu_torch.physics import fused_world, track_engine  # noqa: E402
 from multi_car_racing_tpu_torch.physics.state import apply_controls  # noqa: E402
 from multi_car_racing_tpu_torch.util import tree_leaves, tree_map  # noqa: E402
@@ -122,6 +149,20 @@ TRACK_MIN_STEPS, TRACK_MAX_STEPS = 5, 60   # phase 10 drives within this window
 ROLLOUT_N = 2
 ROLLOUT_CHUNK = 64
 POOL_SEEDS = tuple(range(100, 132))
+# K6 replaces the Pallas painter: _make_kernel :353 / _paint_view :389, its
+# pallas_call :638 from render_pixels :587.
+PAINT_TPU_KERNEL = "multi_car_racing_tpu/render/pallas_raster.py:353"
+PIXEL_DRIVE = 60                # steps to a steady (post zoom-out) state
+PIXEL_E1, PIXEL_E4 = 1024, 512  # envs of the N = 1 CW and N = 4 ego-colour checks
+GOLDEN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "fixtures",
+                          "golden")
+GOLDENS = ("steady_2agent", "warmup_2agent", "cw_1agent", "egocolor_4agent",
+           "backwards_flag")
+# Phase 14: learner/ppo.py's pixel rollout at the multi2px shape.
+PPO_E = 1024
+PPO_DECISIONS = 32              # decisions per chunk
+PPO_REPEAT = 4                  # physics steps per decision
+PPO_CHUNKS = 9                  # 9 * 128 = 1152 steps, past the 1000-step limit
 
 
 def phase(msg: str) -> None:
@@ -549,6 +590,243 @@ def rollout_phase(smi: str, dev: torch.device) -> dict:
     return out
 
 
+def compare_pixels(cfg, state, label: str) -> dict:
+    """K6 against the plain painter on one batch: every byte equal, and two
+    launches bit-identical. Prints what the input exercised; raises past
+    the bar (equality)."""
+    args = pixels.paint_inputs(cfg, state)
+    k = pixels.paint_views(*args)
+    k2 = pixels.paint_views(*args)
+    p = pixels.paint_views_plain(*args)
+    torch.cuda.synchronize()
+    cam, p8 = args[0], args[3]
+    warm = cam[..., 5] > 0
+    flag = p8.shape[2] > 4 * cfg.num_agents
+    out = {"views": warm.numel(), "warm_views": int(warm.sum()),
+           "differing_bytes": int((k != p).sum()),
+           "max_abs_err": int((k.int() - p.int()).abs().max()),
+           "bit_identical": torch.equal(k, k2),
+           "flag_views": int((p8[:, :, -1, 25] > 0).sum()) if flag else 0,
+           "mean_active_quads": float(cam[..., 6][~warm].mean()) if bool((~warm).any()) else 0.0}
+    phase(f"{label}: {out['views']} views ({out['warm_views']} warm, {out['flag_views']} with "
+          f"the backwards flag, {out['mean_active_quads']:.2f} active road slots per steady "
+          f"view); bytes differing from the plain painter {out['differing_bytes']}; two "
+          f"launches bit-identical: {out['bit_identical']}")
+    if out["differing_bytes"] or not out["bit_identical"]:
+        raise AssertionError(f"{label}: K6 vs plain {out}")
+    return out
+
+
+def drive(cfg, state, actions, steps: int):
+    for t in range(steps):
+        state, _, _ = penv.step(cfg, state, actions[t % 8])
+    return state
+
+
+def pixel_checks(dev: torch.device, pool) -> dict:
+    """Phase 12: K6 against the plain painter on every kind of input the
+    pixel paths give it, then on the golden frames."""
+    res = {}
+    cfg2 = EnvConfig(num_agents=2)
+    acts2 = cycled_actions(E, 2, dev)
+    spawn = penv.reset_batch(cfg2, SEEDS, E)
+    res["N=2 spawn tick"] = r = compare_pixels(cfg2, spawn, f"N=2, E={E}, spawn tick")
+    if r["warm_views"] != r["views"]:
+        raise AssertionError("the spawn tick's views are not all warm")
+    steady = drive(cfg2, spawn, acts2, PIXEL_DRIVE)
+    res["N=2 steady"] = r = compare_pixels(cfg2, steady, f"N=2, E={E}, after {PIXEL_DRIVE} "
+                                                         f"steps")
+    if r["warm_views"]:
+        raise AssertionError(f"warm views after {PIXEL_DRIVE} steps")
+    done = torch.arange(E, device=dev) % 3 == 0
+    mixed = penv.reset_done_envs(cfg2, steady.replace(done=done), pool,
+                                 torch.Generator(device=dev).manual_seed(1))
+    res["N=2 mixed"] = r = compare_pixels(cfg2, mixed, f"N=2, E={E}, after reset_done_envs "
+                                                       f"refreshed {int(done.sum())} envs")
+    if r["warm_views"] != 2 * int(done.sum()):
+        raise AssertionError("the refreshed envs' views are not the warm ones")
+    backward = (torch.arange(2 * E, device=dev) % 3 == 1).view(E, 2)
+    bwd = mixed.replace(driving_backward=backward)
+    res["N=2 backward"] = r = compare_pixels(cfg2, bwd, f"N=2, E={E}, driving_backward in a "
+                                                       f"third of the views")
+    forward = mixed.replace(driving_backward=torch.zeros_like(backward))
+    flagged = (pixels.render_pixels(cfg2, bwd)
+               != pixels.render_pixels(cfg2, forward)).flatten(2).any(-1)
+    if r["flag_views"] != int(backward.sum()) or not torch.equal(flagged, backward):
+        raise AssertionError("the backwards flag is not painted on exactly the backward views")
+    cfg1 = EnvConfig(num_agents=1, direction="CW", use_random_direction=False)
+    st1 = penv.reset_batch(cfg1, SEEDS, PIXEL_E1)
+    res["N=1 CW spawn tick"] = compare_pixels(cfg1, st1, f"N=1 CW, E={PIXEL_E1}, spawn tick")
+    st1 = drive(cfg1, st1, cycled_actions(PIXEL_E1, 1, dev), PIXEL_DRIVE)
+    res["N=1 CW steady"] = compare_pixels(cfg1, st1, f"N=1 CW, E={PIXEL_E1}, after "
+                                                     f"{PIXEL_DRIVE} steps")
+    cfg4 = EnvConfig(num_agents=4, use_ego_color=True)
+    st4 = penv.reset_batch(cfg4, SEEDS, PIXEL_E4)
+    res["N=4 ego spawn tick"] = compare_pixels(cfg4, st4, f"N=4 ego colour, E={PIXEL_E4}, "
+                                                          f"spawn tick")
+    st4 = drive(cfg4, st4, cycled_actions(PIXEL_E4, 4, dev), PIXEL_DRIVE)
+    res["N=4 ego steady"] = compare_pixels(cfg4, st4, f"N=4 ego colour, E={PIXEL_E4}, after "
+                                                      f"{PIXEL_DRIVE} steps")
+    goldens = {}
+    for name in GOLDENS:
+        d = np.load(os.path.join(GOLDEN_DIR, name + ".npz"), allow_pickle=False)
+        gcfg = EnvConfig(**json.loads(str(d["meta"]))["cfg"])
+        gst = convert.env_state_from_leaves([d[f"leaf_{i}"][None] for i in range(52)])
+        res[f"golden {name}"] = compare_pixels(gcfg, gst, f"golden {name}")
+        img = pobs.pixel_observation_batched(gcfg, gst)[0].cpu().numpy()
+        goldens[name] = int((img != d["frame"]).any(-1).sum())
+    phase(f"golden frames, pixels differing from the fixture: {goldens}")
+    if any(goldens.values()):
+        raise AssertionError(f"K6 differs from the golden frames: {goldens}")
+    return {"checks": res, "goldens": goldens}
+
+
+def pixel_main_path(smi: str, dev: torch.device) -> dict:
+    """Phase 13: bench.py's pixel workload through the entry points, K6's
+    count zeroed just before the reset and read just after the last frame;
+    then K6's times and bounds, and the stage table."""
+    cfg = EnvConfig(num_agents=2)
+    actions = cycled_actions(E, 2, dev)
+    fused_world.island_step.launches = fused_world.island_step.contact_launches = 0
+    track_engine.track_pass.launches = track_engine.track_pass_plain.cuda_calls = 0
+    pixels.paint_views.launches = pixels.paint_views_plain.cuda_calls = 0
+    t0 = time.perf_counter()
+    state = penv.reset_batch(cfg, SEEDS, E)
+    spawn = state
+    frame = pobs.pixel_observation_batched(cfg, state)
+    for t in range(WARMUP):
+        state, r, _ = penv.step(cfg, state, actions[t % 8])
+        frame = pobs.pixel_observation_batched(cfg, state)
+    float(r.sum())
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    ret = torch.zeros_like(r)
+    t0 = time.perf_counter()
+    for t in range(T):
+        state, r, _ = penv.step(cfg, state, actions[(WARMUP + t) % 8])
+        frame = pobs.pixel_observation_batched(cfg, state)
+        ret = ret + r
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches, plain_calls = pixels.paint_views.launches, pixels.paint_views_plain.cuda_calls
+    island = fused_world.island_step.contact_launches
+    if tuple(frame.shape) != (E, 2, 96, 96, 3) or frame.dtype != torch.uint8:
+        raise AssertionError(f"frames {tuple(frame.shape)} {frame.dtype}")
+    if launches != 1 + WARMUP + T or plain_calls:
+        raise AssertionError(f"K6 launched {launches} times (expected {1 + WARMUP + T}), the "
+                             f"plain painter ran {plain_calls} times on the card (expected 0)")
+    if island != 1 + WARMUP + T or track_engine.track_pass.launches != 1 + WARMUP + T:
+        raise AssertionError("the pixel main path's steps did not all go through K2 and K4/K5")
+    assert_finite(state)
+    road = (frame[..., 0] == frame[..., 1]) & (frame[..., 1] == frame[..., 2]) \
+        & (frame[..., 0] >= 102) & (frame[..., 0] <= 107)
+    road_share = float(road.float().mean())
+    if not 0.02 < road_share < 0.9:
+        raise AssertionError(f"road grey covers {road_share:.3f} of the last frames")
+    step_ms = 1e3 * elapsed / T
+    phase(f"pixel main path: reset + first frame + {WARMUP} steps with frames {warm_s:.3f} s; "
+          f"{T} steps with frames in {elapsed:.4f} s = {step_ms:.4f} ms/step, "
+          f"{E * T / elapsed:.1f} env-steps/s on {smi}; K6 launches {launches}, plain painter "
+          f"calls on the card {plain_calls}; road grey on {road_share:.3f} of the last frames")
+
+    steady_args = pixels.paint_inputs(cfg, state)
+    spawn_args = pixels.paint_inputs(cfg, spawn)
+    ms = cuda_ms(lambda: pixels.paint_views(*steady_args), KERNEL_TIMING_LAUNCHES)
+    spawn_ms = cuda_ms(lambda: pixels.paint_views(*spawn_args), KERNEL_TIMING_LAUNCHES)
+    plain_ms = cuda_ms(lambda: pixels.paint_views_plain(*steady_args), 1)
+    out = {"launches": launches, "plain_calls": plain_calls, "step_ms": step_ms,
+           "env_steps_per_s": E * T / elapsed, "ms": ms, "spawn_ms": spawn_ms,
+           "plain_ms": plain_ms}
+    for key, st, kms in (("", state, ms), ("spawn_", spawn, spawn_ms)):
+        nbytes, flops = pixels.paint_work(cfg, st)
+        byte_ms, flop_ms = 1e3 * nbytes / PEAK_BYTES_PER_S, 1e3 * flops / PEAK_FP32_FLOPS
+        out.update({f"{key}bound_ms": max(byte_ms, flop_ms),
+                    f"{key}bound_by": "operations" if flop_ms >= byte_ms else "bytes",
+                    f"{key}bytes": nbytes, f"{key}flops": flops})
+        phase(f"K6 {'spawn tick' if key else 'steady'}: {kms:.5f} ms/launch (CUDA events, "
+              f"{KERNEL_TIMING_LAUNCHES} launches); bound {max(byte_ms, flop_ms):.5f} ms "
+              f"({nbytes} bytes = {byte_ms:.5f} ms, {flops} fp32 ops = {flop_ms:.5f} ms)")
+    a0 = actions[0]
+    stages = {
+        "env.step": cuda_ms(lambda: penv.step(cfg, state, a0), 10),
+        "view_inputs": cuda_ms(lambda: pixels.view_inputs(cfg, state), 20),
+        "K6 (paint_views)": ms,
+        "pixel_observation_batched": cuda_ms(
+            lambda: pobs.pixel_observation_batched(cfg, state), 20),
+    }
+    out["view_inputs_ms"] = stages["view_inputs"]
+    out["stages"] = stages
+    phase("pixel step stages (ms, CUDA events): " + ", ".join(
+        f"{k} {v:.4f}" for k, v in stages.items()) + f"; plain painter {plain_ms:.3f} ms "
+        f"(steady); {step_ms:.4f} ms per step with its frame")
+    return out
+
+
+def pixel_rollout_phase(smi: str, dev: torch.device, pool) -> dict:
+    """Phase 14: the env side of learner/ppo.py's pixel rollout at E = 1024,
+    N = 2: a frame per decision, PPO_REPEAT steps per decision, chunks of
+    PPO_DECISIONS decisions with reset_done_envs between them, past the
+    time limit. Counts zeroed just before the first reset."""
+    cfg = EnvConfig(num_agents=2)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    idx, orders, dirs = penv.draw_episodes(cfg, PPO_E, len(POOL_SEEDS), gen)
+    fused_world.island_step.launches = fused_world.island_step.contact_launches = 0
+    track_engine.track_pass.launches = track_engine.track_pass_plain.cuda_calls = 0
+    pixels.paint_views.launches = pixels.paint_views_plain.cuda_calls = 0
+    state = penv.reset_from_parts(cfg, tree_map(lambda x: x.index_select(0, idx), pool),
+                                  orders, dirs)
+    actions = cycled_actions(PPO_E, 2, dev)
+    events, warm_counts, limited, resets = [], [], 0, 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for c in range(PPO_CHUNKS):
+        for d in range(PPO_DECISIONS):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            frame = pobs.pixel_observation_batched(cfg, state)
+            b.record()
+            events.append((a, b))
+            warm_counts.append((state.t < 0.999).sum())
+            for _ in range(PPO_REPEAT):
+                state, _, _ = penv.step(cfg, state, actions[(c * PPO_DECISIONS + d) % 8])
+        if c < PPO_CHUNKS - 1:
+            limited += int((state.steps >= cfg.max_episode_steps).sum())
+            state = penv.reset_done_envs(cfg, state, pool, gen)
+            resets += 1
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    steps, frames = PPO_CHUNKS * PPO_DECISIONS * PPO_REPEAT, PPO_CHUNKS * PPO_DECISIONS
+    warm = torch.stack(warm_counts).tolist()
+    mixed = sum(0 < w < PPO_E for w in warm)
+    frame_ms = sum(a.elapsed_time(b) for a, b in events) / PPO_CHUNKS
+    counts = {"k6_launches": pixels.paint_views.launches,
+              "plain_paint_calls": pixels.paint_views_plain.cuda_calls,
+              "contact_launches": fused_world.island_step.contact_launches,
+              "track_launches": track_engine.track_pass.launches,
+              "k1_launches": fused_world.island_step.launches,
+              "plain_track_calls": track_engine.track_pass_plain.cuda_calls}
+    want = 1 + steps + resets
+    out = {"envs": PPO_E, "chunks": PPO_CHUNKS, "steps": steps, "frames": frames,
+           "env_steps_per_s": PPO_E * steps / elapsed, "frame_ms_per_chunk": frame_ms,
+           "frames_mixing_warm_and_steady": mixed, "reset_at_limit": limited, **counts}
+    phase(f"pixel-PPO env side: {PPO_CHUNKS} chunks of {PPO_DECISIONS} decisions x "
+          f"{PPO_REPEAT} steps at E={PPO_E}, N=2 in {elapsed:.3f} s = "
+          f"{out['env_steps_per_s']:.1f} env-steps/s on {smi} (frames and resets included); "
+          f"frames {frame_ms:.4f} ms per chunk (CUDA events); {mixed} of {frames} frames mix "
+          f"warm and steady views; {limited} envs reset at the time limit; launches: K6 "
+          f"{counts['k6_launches']} (expected {frames}), K2 {counts['contact_launches']} and "
+          f"K4/K5 {counts['track_launches']} (expected {want}), K1 {counts['k1_launches']}, "
+          f"plain painter {counts['plain_paint_calls']}, plain track pass "
+          f"{counts['plain_track_calls']}")
+    if (counts["k6_launches"] != frames or counts["contact_launches"] != want
+            or counts["track_launches"] != want or counts["k1_launches"]
+            or counts["plain_paint_calls"] or counts["plain_track_calls"]):
+        raise AssertionError(f"pixel rollout: launch counts {counts}")
+    if tuple(frame.shape) != (PPO_E, 2, 96, 96, 3) or not mixed or not limited:
+        raise AssertionError("pixel rollout: wrong frames, no mixed launch or no time limit")
+    return out
+
+
 def report(name: str, source: str, replaces: str, launches: int, max_abs_err: float,
            max_err_over_bar: float, times: dict, **extra) -> dict:
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -558,7 +836,7 @@ def report(name: str, source: str, replaces: str, launches: int, max_abs_err: fl
 
 def main() -> int:
     start = time.perf_counter()
-    phase("1/12 device")
+    phase("1/15 device")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs the port on the card only",
               file=sys.stderr)
@@ -572,14 +850,16 @@ def main() -> int:
     phase(f"device {kind} | nvidia-smi: {smi} | torch {torch.__version__} "
           f"cuda {torch.version.cuda} | python {sys.version.split()[0]}")
 
-    phase("2/12 build (one nvcc per kernel, started together)")
+    phase("2/15 build (one nvcc per kernel, started together)")
     t0 = time.perf_counter()
-    kernels = (fused_world.KERNEL, fused_world.CONTACT_KERNEL, track_engine.KERNEL)
+    kernels = (fused_world.KERNEL, fused_world.CONTACT_KERNEL, track_engine.KERNEL,
+               pixels.KERNEL)
     with ThreadPoolExecutor(len(kernels)) as pool:
         list(pool.map(_cuda.load, kernels))
     fused_world._library(fused_world.KERNEL)
     fused_world._library(fused_world.CONTACT_KERNEL)
     track_engine._library()
+    pixels._library()
     for name in kernels:
         info = _cuda.build_info[name]
         phase(f"built {name} in {info['seconds']:.2f} s: " + " | ".join(info["ptxas"]))
@@ -588,7 +868,7 @@ def main() -> int:
     cfg = EnvConfig(num_agents=1, use_random_direction=False)
     actions = cycled_actions(E, cfg.num_agents, dev)
 
-    phase(f"3/12 K1 vs plain at E={E} after 20 steps")
+    phase(f"3/15 K1 vs plain at E={E} after 20 steps")
     state = penv.reset_batch(cfg, SEEDS, E)
     for t in range(20):
         state, _, _ = penv.step(cfg, state, actions[t % 8])
@@ -606,7 +886,7 @@ def main() -> int:
     if skid_miss > E // 1000:       # a threshold flag; 1-ulp force noise may flip it
         raise AssertionError(f"kernel vs plain: {skid_miss} skid flags differ")
 
-    phase(f"4/12 small input: {len(SMALL_SEEDS)} envs x {SMALL_STEPS} steps, card vs CPU")
+    phase(f"4/15 small input: {len(SMALL_SEEDS)} envs x {SMALL_STEPS} steps, card vs CPU")
     small = {d: penv.reset_batch(cfg, SMALL_SEEDS, len(SMALL_SEEDS), device=d)
              for d in ("cuda", "cpu")}
     returns = {d: 0.0 for d in small}
@@ -621,7 +901,7 @@ def main() -> int:
     if not (ret_dev <= 2e-5 and pos_dev <= 1e-3):
         raise AssertionError("small-input run on the card disagrees with the CPU path")
 
-    phase(f"5/12 N=1 main path: reset_batch E={E} ({len(SEEDS)} tracks) + {WARMUP} "
+    phase(f"5/15 N=1 main path: reset_batch E={E} ({len(SEEDS)} tracks) + {WARMUP} "
           f"warm-up + {T} steps")
     run1 = main_path(cfg, actions, "N=1", smi)
     times1 = kernel_times(cfg, run1, actions)
@@ -632,7 +912,7 @@ def main() -> int:
 
     cfg2 = EnvConfig(num_agents=2, use_random_direction=False)
     actions2 = cycled_actions(E, cfg2.num_agents, dev)
-    phase(f"6/12 K2 vs plain at N=2, E={E}, driven until {NEAR_SHARE:.0%} of envs are near")
+    phase(f"6/15 K2 vs plain at N=2, E={E}, driven until {NEAR_SHARE:.0%} of envs are near")
     state = penv.reset_batch(cfg2, SEEDS, E)
     for t in range(NEAR_MAX_STEPS + 1):
         pre = apply_controls(state.cars, actions2[t % 8])
@@ -657,7 +937,7 @@ def main() -> int:
     if k_live_envs == 0:
         raise AssertionError("K2 vs plain: no env with a live contact point")
 
-    phase("7/12 rear-end ram (N=4, E=1): K2 vs plain at the first step with contact")
+    phase("7/15 rear-end ram (N=4, E=1): K2 vs plain at the first step with contact")
     ram_cfg, ram, ram_act, ram_t = ram_state(dev)
     ram_pre = apply_controls(ram.cars, ram_act)
     k_ram = fused_world.island_step(ram_pre, ram.wheel_on_road, ram.contacts)
@@ -673,7 +953,7 @@ def main() -> int:
     if ram_id_miss:
         raise AssertionError("ram: K2's manifold ids differ from the plain version's")
 
-    phase("8/12 determinism: two K2 launches on phase 6's input")
+    phase("8/15 determinism: two K2 launches on phase 6's input")
     fin, ls_in = fused_world.pack_inputs(pre, state.wheel_on_road)
     a = fused_world.launch_contacts(fin, ls_in, cs_pre, cfg2.num_agents)
     b = fused_world.launch_contacts(fin, ls_in, cs_pre, cfg2.num_agents)
@@ -684,7 +964,7 @@ def main() -> int:
     if not same:
         raise AssertionError("two K2 launches on the same input differ")
 
-    phase(f"9/12 N=2 main path: reset_batch E={E} ({len(SEEDS)} tracks) + {WARMUP} "
+    phase(f"9/15 N=2 main path: reset_batch E={E} ({len(SEEDS)} tracks) + {WARMUP} "
           f"warm-up + {T} steps")
     run2 = main_path(cfg2, actions2, "N=2", smi)
     times2 = kernel_times(cfg2, run2, actions2)
@@ -699,7 +979,7 @@ def main() -> int:
                 live_envs=k_live_envs,
                 id_miss_envs=id_miss, ram_max_normal_imp=ram_imp)
 
-    phase(f"10/12 K4/K5 vs plain at E={E}, N=1 and N=2: a stepped state and a spawn tick")
+    phase(f"10/15 K4/K5 vs plain at E={E}, N=1 and N=2: a stepped state and a spawn tick")
     checks = {**track_phase(cfg, actions), **track_phase(cfg2, actions2)}
     worst = max(r["bonus_err"] for r in checks.values())
     k45 = report(track_engine.KERNEL, "multi_car_racing_tpu_torch/csrc/track_pass.cu",
@@ -710,12 +990,40 @@ def main() -> int:
                  checks={k: {"gained": r["gained"], "second_visitor_shares": r["share"]}
                          for k, r in checks.items()})
 
-    phase(f"11/12 state-PPO rollout: E={E}, N={ROLLOUT_N}, pool of {len(POOL_SEEDS)} host "
+    phase(f"11/15 state-PPO rollout: E={E}, N={ROLLOUT_N}, pool of {len(POOL_SEEDS)} host "
           f"tracks, chunks of {ROLLOUT_CHUNK} steps, past the time limit")
     rollout = rollout_phase(smi, dev)
 
-    phase(f"12/12 report: every phase passed in {time.perf_counter() - start:.1f} s")
-    print(json.dumps({"kernels": [k1, k2, k45], "rollout": rollout}), flush=True)
+    phase("12/15 K6 vs plain: N=2 spawn tick, steady, mixed and backward at E=4096; N=1 CW; "
+          "N=4 ego colour; the golden frames")
+    pool = penv.make_track_pool(EnvConfig(num_agents=2), POOL_SEEDS, device=dev)
+    px_checks = pixel_checks(dev, pool)
+
+    phase(f"13/15 pixel main path: reset_batch E={E}, N=2 + {WARMUP} warm-up + {T} steps, a "
+          f"frame after the reset and after every step")
+    px_run = pixel_main_path(smi, dev)
+
+    phase(f"14/15 pixel-PPO env side: E={PPO_E}, N=2, {PPO_CHUNKS} chunks of {PPO_DECISIONS} "
+          f"decisions x {PPO_REPEAT} steps, autoreset, past the time limit")
+    px_rollout = pixel_rollout_phase(smi, dev, pool)
+    k6 = report(pixels.KERNEL, "multi_car_racing_tpu_torch/csrc/paint_view.cu",
+                PAINT_TPU_KERNEL, px_run["launches"],
+                float(max(r["max_abs_err"] for r in px_checks["checks"].values())),
+                0.0,  # the bar is equality: compare_pixels raised on any differing byte
+                {k: px_run[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+                differing_bytes=sum(r["differing_bytes"] for r in px_checks["checks"].values()),
+                main_path=f"E={E}, N=2, a frame per step", spawn_ms=px_run["spawn_ms"],
+                spawn_bound_ms=px_run["spawn_bound_ms"], spawn_bound_by=px_run["spawn_bound_by"],
+                view_inputs_ms=px_run["view_inputs_ms"], launches_pixel_ppo=px_rollout[
+                    "k6_launches"],
+                checks={k: {"views": r["views"], "warm_views": r["warm_views"],
+                            "flag_views": r["flag_views"]}
+                        for k, r in px_checks["checks"].items()})
+
+    phase(f"15/15 report: every phase passed in {time.perf_counter() - start:.1f} s")
+    print(json.dumps({"kernels": [k1, k2, k45, k6], "rollout": rollout,
+                      "pixel_main_path": {k: v for k, v in px_run.items()},
+                      "pixel_rollout": px_rollout}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),

@@ -6,14 +6,16 @@ CarRacing-v0 (one car) or MultiCarRacing-v0 (``num_agents`` >= 2 cars, with
 car-car contacts) on an NVIDIA card, through hand-written CUDA kernels: the
 physics island (``csrc/joints_island.cu`` at one car per env,
 ``csrc/contact_island.cu`` at two or more) and the track stage
-(``csrc/track_pass.cu``). For rollouts it adds state observations and
-autoreset from a pool of host tracks:
+(``csrc/track_pass.cu``). It observes the envs as state vectors or as the
+reference's 96x96 pixels (one launch of ``csrc/paint_view.cu`` per frame),
+and resets finished envs from a pool of host tracks:
 
     from multi_car_racing_tpu_torch import EnvConfig, env, obs
     cfg = EnvConfig(num_agents=2)
     state = env.reset_batch(cfg, seeds=range(16), num_envs=4096)   # on CUDA
     state, reward, done = env.step(cfg, state, actions)            # (E, 2, 3)
     features = obs.state_observation(state)                         # (E, 2, 38)
+    frames = obs.pixel_observation_batched(cfg, state)              # (E, 2, 96, 96, 3)
     pool = env.make_track_pool(cfg, seeds=range(32))
     state = env.reset_done_envs(cfg, state, pool, torch.Generator("cuda"))
 
@@ -22,8 +24,8 @@ every kernel is replaced by its plain PyTorch version. Kernels build with
 nvcc at first use; importing the package builds nothing.
 """
 
-from . import config, convert, env, obs
+from . import config, convert, env, obs, render
 from .config import EnvConfig
 
 __version__ = "0.1.0"
-__all__ = ["config", "convert", "env", "obs", "EnvConfig"]
+__all__ = ["config", "convert", "env", "obs", "render", "EnvConfig"]

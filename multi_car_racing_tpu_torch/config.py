@@ -127,16 +127,21 @@ FRONT_WHEELS = (0, 1)          # steer applies to front wheels (cd:168-169)
 class EnvConfig:
     """Static environment configuration (frozen and hashable).
 
-    The fields of the JAX package's ``EnvConfig`` that this slice of the port
-    reads: the reference constructor kwargs that shape the physics and the
-    episode (mcr:131-133), track padding and the solver iteration counts.
-    ``track_skid`` and ``exact_hull_touch`` belong to the rendering slice;
-    the env refuses them when set rather than ignoring them.
+    The fields of the JAX package's ``EnvConfig`` that the port reads: the
+    reference constructor kwargs that shape the physics, the episode and the
+    pixel observation (mcr:131-133: the backwards flag, the camera's height
+    ratio and ego colours, read by ``render.pixels``), track padding and the
+    solver iteration counts. ``track_skid`` and ``exact_hull_touch`` belong
+    to the rgb_array painter, not yet ported; the env refuses them when set
+    rather than ignoring them.
     """
 
     num_agents: int = 2
     direction: str = "CCW"            # 'CCW' or 'CW'
     use_random_direction: bool = True
+    backwards_flag: bool = True       # blue triangle while driving backward
+    h_ratio: float = 0.25             # car anchor height / window height
+    use_ego_color: bool = False       # ego car red, others blue (per view)
 
     # --- engine knobs (new, no reference counterpart) ---
     max_tiles: int = 384              # pad track to this many tiles (measured max 355)

@@ -56,6 +56,31 @@ def env_state_from_numpy(tree, device=None) -> EnvState:
     return _from_tree(EnvState, tree, resolve_device(device))
 
 
+class _Leaves:
+    """A flat leaf sequence read as an attribute tree, depth first: a nested
+    state's name gives the same reader, any other name the next leaf."""
+
+    def __init__(self, leaves):
+        self.it = iter(leaves)
+
+    def __getattr__(self, name):
+        return self if name in _NESTED else next(self.it)
+
+
+def env_state_from_leaves(leaves, device=None) -> EnvState:
+    """A batched port ``EnvState`` on ``device`` (default CUDA) from the
+    numpy leaves of a state, env axis first, in the port's field order --
+    depth first, nested states in place -- which is also the leaf order of
+    the JAX ``EnvState`` pytree (52 leaves). This loads a state saved as
+    leaves (the golden-frame fixtures) without JAX. Every tensor is a
+    contiguous copy, as the kernels read them."""
+    tree = _Leaves(leaves)
+    state = _from_tree(EnvState, tree, resolve_device(device))
+    if next(tree.it, None) is not None:
+        raise ValueError("env_state_from_leaves: more leaves than EnvState has fields")
+    return state
+
+
 def _to_tree(obj):
     if dataclasses.is_dataclass(obj):
         return {f.name: _to_tree(getattr(obj, f.name)) for f in dataclasses.fields(obj)}

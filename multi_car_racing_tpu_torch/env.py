@@ -22,9 +22,9 @@ Episode management for batched rollouts: ``make_track_pool`` stacks host
 tracks, ``reset_done_envs`` puts fresh episodes drawn from the pool into the
 envs that are done or past ``cfg.max_episode_steps``.
 
-Skid trails and the exact hull-touch flag belong to the rendering slice:
-``step`` raises ``NotImplementedError`` for them rather than computing
-something else.
+Skid trails and the exact hull-touch flag belong to the rgb_array painter,
+not yet ported: ``step`` raises ``NotImplementedError`` for them rather than
+computing something else.
 """
 
 from __future__ import annotations
@@ -85,9 +85,11 @@ class EnvState:
 
 def _check_supported(cfg: C.EnvConfig):
     if cfg.track_skid:
-        raise NotImplementedError("skid trails belong to the rendering slice of the port")
+        raise NotImplementedError("skid trails belong to the rendering slice's rgb_array "
+                                  "painter, not yet ported")
     if cfg.exact_hull_touch:
-        raise NotImplementedError("exact_hull_touch belongs to the rendering slice of the port")
+        raise NotImplementedError("exact_hull_touch belongs to the rendering slice's "
+                                  "rgb_array painter, not yet ported")
 
 
 def _episode_start(cars: CarState, track: Track, direction_cw: torch.Tensor,

@@ -2,8 +2,8 @@
 
 Port of the JAX package's ``obs.state_observation``: a compact per-car
 feature vector (no reference counterpart; the reference observes pixels
-only) so physics-only training never touches the rasterizer. Pixel
-observations belong to the rendering slice of the port.
+only) so physics-only training never touches the rasterizer; and the
+reference's own pixel observation, ``pixel_observation_batched``.
 
 Where the JAX version picks tiles with one-hot contractions (for the TPU's
 matrix unit), this one gathers: no matrix product, so no TF32 rounding,
@@ -18,6 +18,7 @@ import torch
 
 from .env import EnvState
 from .physics.track_engine import nearest_tile
+from .render import pixels
 
 STATE_OBS_DIM = 38
 
@@ -107,3 +108,11 @@ def state_observation(state: EnvState) -> torch.Tensor:
     wps = torch.stack([wp_f, wp_l], dim=-1).reshape(E, n, -1)   # (E, N, 2K)
     return torch.cat([base, wps, torch.cos(far_err)[..., None],
                       torch.sin(far_err)[..., None]], dim=-1)
+
+
+def pixel_observation_batched(cfg, state: EnvState) -> torch.Tensor:
+    """Pixel observations (E, N, 96, 96, 3) uint8, one view per car, on the
+    state's device (mcr:431): on CUDA through one launch of the painter
+    kernel ``csrc/paint_view.cu``, on the CPU through its plain version
+    (``render.pixels.render_pixels``)."""
+    return pixels.render_pixels(cfg, state)

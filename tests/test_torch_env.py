@@ -178,7 +178,7 @@ def test_render_knobs_are_refused(knob):
         penv.reset_batch(cfg, (0,), 1, device="cpu")
 
 
-@pytest.mark.parametrize("field", ["auto_reset", "dtype", "obs_type", "backwards_flag"])
+@pytest.mark.parametrize("field", ["auto_reset", "dtype", "obs_type", "verbose"])
 def test_config_has_no_field_the_port_does_not_read(field):
     """A JAX-package knob this slice does not implement is not a field of the
     port's config, so setting it fails instead of being ignored."""

@@ -37,6 +37,7 @@ from multi_car_racing_tpu_torch import config, convert, env, obs, seeding, util,
 from multi_car_racing_tpu_torch.physics import (
     collide, fused_world, joints, overlap, shapes, state, tire, track_engine, world)
 from multi_car_racing_tpu_torch.track import common, host
+from multi_car_racing_tpu_torch.render import geometry, pixels, raster
 spec = importlib.util.spec_from_file_location("chip_smoke", {str(SMOKE)!r})
 mod = importlib.util.module_from_spec(spec)
 spec.loader.exec_module(mod)          # defines main(), does not run it

@@ -1,5 +1,5 @@
 """The port's CUDA kernels (joints_island, K1; contact_island, K2;
-track_pass, K4/K5) against their plain PyTorch versions on an NVIDIA card. Imports no JAX, so it runs on a machine with the card and without JAX:
+track_pass, K4/K5; paint_view, K6) against their plain PyTorch versions on an NVIDIA card. Imports no JAX, so it runs on a machine with the card and without JAX:
 
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_kernels_gpu.py
 
@@ -15,6 +15,7 @@ import torch
 from multi_car_racing_tpu_torch import EnvConfig, env as penv
 from multi_car_racing_tpu_torch.physics import fused_world, track_engine
 from multi_car_racing_tpu_torch.physics.state import apply_controls
+from multi_car_racing_tpu_torch.render import pixels
 
 TOL = 5e-4
 STEP_FLOOR = 1e-3     # floor of the per-step-change scale
@@ -202,3 +203,68 @@ def test_track_wrapper_rejects_bad_inputs_on_card():
     many = torch.zeros((4, 33, visited.shape[-1]), dtype=torch.bool, device="cuda")
     with pytest.raises(RuntimeError, match="invalid argument"):
         track_engine.launch(track, wheels, origins, many, touched)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("num_cars", [1, 2, 4])
+@pytest.mark.parametrize("num_envs", [1, 37, 4096])
+def test_paint_kernel_matches_plain_on_card(num_envs, num_cars):
+    """paint_view (K6) against paint_views_plain on the same card tensors,
+    every byte equal, on a batch driven 12 steps (every view warm: the whole
+    track in world space), the same batch 2 s later (steady: the windowed
+    slots) and mixed (every other env steady); two launches bit-identical."""
+    _need_card()
+    cfg = EnvConfig(num_agents=num_cars)
+    state = penv.reset_batch(cfg, range(8), num_envs, device="cuda")
+    act = torch.as_tensor(np.random.RandomState(3).uniform(
+        [-1, 0, 0], [1, 1, 0.2], size=(num_envs, num_cars, 3)), dtype=torch.float32,
+        device="cuda")
+    for _ in range(12):
+        state, _, _ = penv.step(cfg, state, act)
+    odd = torch.arange(num_envs, device="cuda") % 2 == 1
+    for label, t, warm_views in (
+            ("warm", state.t, num_envs * num_cars),
+            ("steady", state.t + 2.0, 0),
+            ("mixed", torch.where(odd, state.t + 2.0, state.t),
+             (num_envs - num_envs // 2) * num_cars)):
+        args = pixels.paint_inputs(cfg, state.replace(t=t))
+        assert int((args[0][..., 5] > 0).sum()) == warm_views, label
+        before = pixels.paint_views.launches
+        k = pixels.paint_views(*args)
+        k2 = pixels.paint_views(*args)
+        p = pixels.paint_views_plain(*args)
+        torch.cuda.synchronize()
+        assert pixels.paint_views.launches == before + 2, label
+        assert k.dtype == torch.uint8 and tuple(k.shape) == (num_envs, num_cars, 96, 96, 3)
+        assert torch.equal(k, k2), label
+        assert torch.equal(k, p), (label, int((k != p).sum()))
+
+
+@pytest.mark.gpu
+def test_paint_wrapper_rejects_bad_inputs_on_card():
+    _need_card()
+    cfg = EnvConfig(num_agents=2)
+    state = penv.reset_batch(cfg, (0,), 4, device="cuda")
+    args = list(pixels.paint_inputs(cfg, state))
+
+    def refused(i, bad, match=None):
+        with pytest.raises(ValueError, match=match):
+            pixels.paint_views(*(args[:i] + [bad] + args[i + 1:]))
+
+    strided = args[1].transpose(2, 3).contiguous().transpose(2, 3)
+    assert strided.shape == args[1].shape and not strided.is_contiguous()
+    refused(1, strided, "contiguous")                       # quads
+    refused(0, args[0].double())                            # cam
+    refused(5, args[5].long())                              # score
+    refused(10, args[10].to(torch.uint8))                   # valid
+    refused(3, args[3][:, :, :-2].contiguous())             # p8 short of a hull slot
+    refused(6, args[6][:, :-1].contiguous())                # quad with a tile missing
+    # The kernel's own cap is its C entry point's: 33 cars is refused with
+    # CUDA's message.
+    E, n, mt = 1, 33, args[6].shape[1]
+    z = lambda *shape, dtype=torch.float32: torch.zeros(shape, dtype=dtype, device="cuda")
+    many = (z(E, n, 8), z(E, n, pixels.SQ, 16), z(E, n, 8 * n, 16), z(E, n, 4 * n, 28),
+            z(E, n, 8, 8), z(E, n, 4, 8, dtype=torch.int32), z(E, mt, 4, 2), z(E, mt, 4, 2),
+            *(z(E, mt, dtype=torch.bool) for _ in range(4)))
+    with pytest.raises(RuntimeError, match="invalid argument"):
+        pixels.paint_views(*many)
