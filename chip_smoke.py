@@ -26,7 +26,13 @@ steps, autoreset between chunks), where every frame is one launch of
 ``csrc/paint_view.cu`` (K6: the 96x96 painter, one block per view, each view
 branching on its own warm-up flag).
 
-The four kernels are built with nvcc at first use from the sources in the
+K3 (``csrc/solve_island.cu``, the island solve alone from a ContactBundle
+made outside) is on none of those paths: its path is
+``fused_world.world_step_batched``, driven on the card at N = 2, 4 and 1 and
+as the harness that holds K2's in-kernel Collide apart from its solve
+(phases 9-12); on env.step's paths its count stays 0.
+
+The five kernels are built with nvcc at first use from the sources in the
 checkout, one nvcc per kernel, started together.
 
 Phases (each prints a line as it starts; any failure exits nonzero). The
@@ -37,7 +43,7 @@ on coordinates of hundreds of metres), limit states equal. The track bars
 (tests/test_track_engine.py's): wheel_on_road, visited, tile_touched,
 on_grass, count and nearest_beta equal, bonus within 2e-5.
   1. device: the card's name and power limit; no CUDA device -> exit 2
-  2. build: the four kernels' build times and ptxas register/spill lines
+  2. build: the five kernels' build times and ptxas register/spill lines
   3. K1 vs plain: one island step through K1 and through its plain PyTorch
      version on the same card tensors at N = 1, E = 4096, after 20 driven
      steps; both bars; skid flags differing bounded
@@ -45,20 +51,35 @@ on_grass, count and nearest_beta equal, bonus within 2e-5.
      path) at N = 1: rewards within 2e-5, hull positions within 1e-3 m
   5. N = 1 main path: reset + 10 warm-up + 100 timed steps at E = 4096; all
      state finite; K1's launch count equals the resets plus steps and K2's
-     is 0; the track kernel's count equals the resets plus steps and the
-     plain track pass ran 0 times on the card; env-steps/s, K1's and the
-     track kernel's times and bounds, stage times by CUDA events
+     and K3's are 0; the track kernel's count equals the resets plus steps
+     and the plain track pass ran 0 times on the card; env-steps/s, K1's and
+     the track kernel's times and bounds, stage times by CUDA events
   6. K2 vs plain at N = 2, E = 4096, on a state driven until a share of envs
      is broadphase-near: CarState fields and impulses within both bars,
      manifold ids differing bounded; fails if no env has a live contact
   7. a rear-end ram at N = 4 driven by the port: K2 vs plain at the first
      step whose normal impulse exceeds 0.1; both bars, ids equal
   8. determinism: two K2 launches on phase 6's input are bit-identical
-  9. N = 2 main path: as phase 5 with K2 (K1's count 0)
- 10. K4/K5 vs plain at N = 1 and N = 2, E = 4096: on a state driven until
+  9. K3 vs plain at N = 2, E = 4096, full 180/60, on phase 6's input: the
+     plain tire model, Collide pass and make_bundle, then world_step_batched
+     on the card against world.world_step on the same card tensors; every
+     CarState field and both impulses within both bars; fails if no env has
+     a live contact. K3's count is set to 0 here
+ 10. K3 vs plain on phase 7's ram (N = 4) and at N = 1, E = 4096 (no bundle)
+ 11. K2 vs plain Collide + K3 on phase 6's input: K2's island step against
+     the plain tire model, Collide and make_bundle followed by K3; both
+     bars, manifold ids differing bounded. K3's count read here: one launch
+     per world_step_batched call of phases 9-11
+ 12. two K3 launches bit-identical; K3's ms per launch (CUDA events, 50
+     launches) beside K2's on the same input, its bound
+     (solve_island_flops / solve_island_bytes), the plain solve's ms and the
+     plain tire + Collide + make_bundle ms
+ 13. N = 2 main path: as phase 5 with K2 (K1's and K3's counts 0); then
+     phase 12's times on the main path's last input
+ 14. K4/K5 vs plain at N = 1 and N = 2, E = 4096: on a state driven until
      tiles are newly visited (at N = 2, until a car earns a second-visitor
      share) and on a spawn tick; the track bars; two launches bit-identical
- 11. state-PPO rollout at N = 2, E = 4096: chunks of 64 steps with state
+ 15. state-PPO rollout at N = 2, E = 4096: chunks of 64 steps with state
      observations, reset_done_envs between chunks, until a chunk has run
      after the time-limit reset; obs (E, 2, 38) finite, the time-limited envs
      at most one chunk old, at least 16 pool tracks in use; K2's and the
@@ -66,7 +87,7 @@ on_grass, count and nearest_beta equal, bonus within 2e-5.
      the first reset plus the steps plus the reset ticks, K1's count and the
      plain track pass's calls on the card are 0; env-steps/s and the ms of
      observations and of resets per chunk
- 12. K6 vs plain, every byte equal, and two launches bit-identical: at N = 2,
+ 16. K6 vs plain, every byte equal, and two launches bit-identical: at N = 2,
      E = 4096, the spawn tick (every view warm), a state driven 60 steps
      (steady), a mixed batch after reset_done_envs refreshed a third of the
      envs, and that state with driving_backward set in a third of the views
@@ -74,20 +95,20 @@ on_grass, count and nearest_beta equal, bonus within 2e-5.
      use_ego_color (E = 512), on the spawn tick and after 60 steps; then the
      five 96x96 golden frames (tests/fixtures/golden, loaded through
      convert.env_state_from_leaves), byte for byte
- 13. pixel main path: bench.py's pixel workload (random direction per
+ 17. pixel main path: bench.py's pixel workload (random direction per
      track) -- reset + 10 warm-up + 100 timed steps at E = 4096, N = 2 with
      a frame after the reset and after every step; K6's count equals the
      111 frames and the plain painter ran 0 times on the card; env-steps/s
      with frames, K6's ms per launch (CUDA events over 50 launches) on the
      last state (steady) and on the spawn tick, its bounds (paint_work) and
      the plain painter's ms, the view_inputs ms, and a stage table
- 14. pixel-PPO env side at E = 1024, N = 2 (learner/ppo.py's pixel shape):
+ 18. pixel-PPO env side at E = 1024, N = 2 (learner/ppo.py's pixel shape):
      a pool of 32 host tracks, chunks of 32 decisions with action repeat 4
      (128 steps, a frame per decision), reset_done_envs between chunks, 9
      chunks = 1152 steps past the 1000-step limit, so warm and steady views
      mix within launches; K6 = frames, K2 = K4/K5 = 1 + steps + reset ticks,
      K1 and the plain painter 0; env-steps/s and the frame ms per chunk
- 15. the kernels JSON line, the nvidia-smi line, and the result line
+ 19. the kernels JSON line, the nvidia-smi line, and the result line
 
 The script imports nothing of JAX or of the JAX package.
 """
@@ -109,7 +130,9 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from multi_car_racing_tpu_torch import EnvConfig, _cuda, convert  # noqa: E402
 from multi_car_racing_tpu_torch import env as penv, obs as pobs, seeding  # noqa: E402
 from multi_car_racing_tpu_torch.render import pixels  # noqa: E402
-from multi_car_racing_tpu_torch.physics import fused_world, track_engine  # noqa: E402
+from multi_car_racing_tpu_torch.physics import collide, fused_world, tire  # noqa: E402
+from multi_car_racing_tpu_torch.physics import track_engine, world  # noqa: E402
+from multi_car_racing_tpu_torch.physics.collide import ContactState  # noqa: E402
 from multi_car_racing_tpu_torch.physics.state import apply_controls  # noqa: E402
 from multi_car_racing_tpu_torch.util import tree_leaves, tree_map  # noqa: E402
 
@@ -132,6 +155,9 @@ CAR_FIELDS = ("hull_c", "hull_a", "hull_v", "hull_w", "wheel_c", "wheel_a",
 # force_no_contacts=True build, K2 its full-contact build (pallas_call :1623
 # through _call_packed :1591).
 TPU_KERNEL = "multi_car_racing_tpu/physics/pallas_world.py:975"
+# K3 replaces the solve-only Pallas kernel: _make_solve_kernel :865, its
+# pallas_call :1237 from world_step_batched :1181.
+SOLVE_TPU_KERNEL = "multi_car_racing_tpu/physics/pallas_world.py:865"
 NEAR_SHARE = 0.10              # drive phase 6 until this share of envs is near
 NEAR_MAX_STEPS = 120
 RAM_STEPS = (100, 160)         # phase 7 looks for the contact in this window
@@ -283,6 +309,7 @@ def main_path(cfg, actions, label: str, smi: str) -> dict:
                       else ("contact_launches", "launches"))
     fused_world.island_step.launches = fused_world.island_step.contact_launches = 0
     track_engine.track_pass.launches = track_engine.track_pass_plain.cuda_calls = 0
+    fused_world.world_step_batched.launches = 0
     t0 = time.perf_counter()
     state = penv.reset_batch(cfg, SEEDS, E)
     torch.cuda.synchronize()
@@ -301,8 +328,8 @@ def main_path(cfg, actions, label: str, smi: str) -> dict:
     launches = getattr(fused_world.island_step, counter)
     track_launches = track_engine.track_pass.launches
     plain_track_calls = track_engine.track_pass_plain.cuda_calls
-    if getattr(fused_world.island_step, other):
-        raise AssertionError(f"{label}: the other island kernel was launched")
+    if getattr(fused_world.island_step, other) or fused_world.world_step_batched.launches:
+        raise AssertionError(f"{label}: the other island kernel or K3 was launched")
     assert_finite(state)
     if tuple(ret.shape) != (E, cfg.num_agents) or not bool(torch.isfinite(ret).all()):
         raise AssertionError("returns have the wrong shape or are not finite")
@@ -320,7 +347,7 @@ def main_path(cfg, actions, label: str, smi: str) -> dict:
           f"{launches}, track launches {track_launches}, plain track calls on the card "
           f"{plain_track_calls}")
     return {"state": state, "launches": launches, "track_launches": track_launches,
-            "step_ms": step_ms}
+            "solve_launches": fused_world.world_step_batched.launches, "step_ms": step_ms}
 
 
 def kernel_times(cfg, run: dict, actions) -> dict:
@@ -408,6 +435,79 @@ def ram_state(device):
         if t + 1 >= RAM_STEPS[0] and float(state.contacts.normal_imp.abs().max()) > 0.1:
             return cfg, state, act, t + 1
     raise AssertionError(f"no ram contact within {RAM_STEPS[1]} steps")
+
+
+def solve_inputs(pre, wheel_on_road, contacts, n: int):
+    """K3's inputs from pre-solve cars: the plain tire model and, at n >= 2,
+    the plain Collide pass and make_bundle. Returns (post-tire cars, wheel
+    force, motor speed, bundle or None, skid, manifolds or None)."""
+    post, force, motor, skid = tire.tire_step(pre, wheel_on_road)
+    if n == 1:
+        return post, force, motor, None, skid, None
+    man = collide.collide(post, n)
+    return post, force, motor, collide.make_bundle(man, contacts, post, n), skid, man
+
+
+def compare_solve(inputs, n: int, label: str) -> dict:
+    """K3 (``world_step_batched`` on the card) against the plain
+    ``world.world_step`` on the same card tensors and bundle: every CarState
+    field and, with a bundle, both impulses within both bars (the step's
+    change taken from K3's input), limit states equal. Fails if a bundle
+    gives no env a live contact."""
+    post, force, motor, bundle = inputs[:4]
+    k_cars, k_imp = fused_world.world_step_batched(post, force, motor, bundle, n)
+    p_cars, p_bundle = world.world_step(post, force, motor, contacts=bundle)
+    torch.cuda.synchronize()
+    devs = compare_cars(k_cars, p_cars, post, label)
+    if bundle is not None:
+        devs.update(compare_fields(
+            {"normal_imp": k_imp[0], "tangent_imp": k_imp[1]},
+            {"normal_imp": p_bundle.normal_imp, "tangent_imp": p_bundle.tangent_imp},
+            {"normal_imp": bundle.normal_imp, "tangent_imp": bundle.tangent_imp}, label))
+        live = int(p_bundle.normal_imp.gt(0).any(-1).any(-1).sum())
+        k_live = int(k_imp[0].gt(0).any(-1).any(-1).sum())
+        phase(f"{label}: {int(bundle.man.point_ok.sum())} live contact points; envs with a "
+              f"normal impulse: plain {live}, K3 {k_live}; max |normal_imp| K3 "
+              f"{float(k_imp[0].abs().max()):.4f}")
+        if k_live == 0:
+            raise AssertionError(f"{label}: no env with a live contact")
+    return devs
+
+
+def solve_times(pre, wheel_on_road, contacts, n: int) -> dict:
+    """On one step's input: K3's time per launch (CUDA events over the bare
+    launch on packed inputs), K2's (the whole island, tire model and Collide
+    included), the plain tire model + Collide + make_bundle that feed K3,
+    the plain solve's time, and K3's bound from the work this bundle needs."""
+    post, force, motor, bundle = solve_inputs(pre, wheel_on_road, contacts, n)[:4]
+    fin, ls_in = fused_world.pack_solve_inputs(post, force, motor)
+    ms = cuda_ms(lambda: fused_world.launch_solve(fin, ls_in, bundle, n), KERNEL_TIMING_LAUNCHES)
+    fin2, ls_in2 = fused_world.pack_inputs(pre, wheel_on_road)
+    k2_ms = cuda_ms(lambda: fused_world.launch_contacts(fin2, ls_in2, contacts, n),
+                    KERNEL_TIMING_LAUNCHES)
+    collide_ms = cuda_ms(lambda: solve_inputs(pre, wheel_on_road, contacts, n), 5)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    p_cars, _ = world.world_step(post, force, motor, contacts=bundle)
+    torch.cuda.synchronize()
+    plain_ms = 1e3 * (time.perf_counter() - t0)
+    envs = post.hull_a.shape[0]
+    n_limit = int((p_cars.limit_state != 0).sum())
+    counts = fused_world.solve_island_work(bundle, n)
+    flops = fused_world.solve_island_flops(envs * n, n_limit, **counts)
+    nbytes = fused_world.solve_island_bytes(envs * n, envs * bundle.man.normal.shape[1])
+    flop_ms, byte_ms = 1e3 * flops / PEAK_FP32_FLOPS, 1e3 * nbytes / PEAK_BYTES_PER_S
+    out = {"ms": ms, "plain_ms": plain_ms, "bound_ms": max(flop_ms, byte_ms),
+           "bound_by": "operations" if flop_ms >= byte_ms else "bytes", "flops": flops,
+           "bytes": nbytes, "k2_ms_same_input": k2_ms, "solve_share_of_k2": ms / k2_ms,
+           "plain_collide_ms": collide_ms}
+    phase(f"K3 {ms:.5f} ms/launch (CUDA events, {KERNEL_TIMING_LAUNCHES} launches); bound "
+          f"{out['bound_ms']:.5f} ms ({flops} fp32 ops = {flop_ms:.5f} ms, {nbytes} bytes = "
+          f"{byte_ms:.5f} ms; {n_limit} joints at a limit, {counts['n_live_points']} live points, "
+          f"{counts['n_touched_bodies']} touched bodies); K2 on the same step {k2_ms:.5f} ms, so "
+          f"the solve is {ms / k2_ms:.1%} of K2; plain tire + Collide + make_bundle "
+          f"{collide_ms:.4f} ms; plain solve {plain_ms:.3f} ms")
+    return out
 
 
 def has_share(bonus: torch.Tensor, cnt: torch.Tensor, track) -> torch.Tensor:
@@ -836,7 +936,7 @@ def report(name: str, source: str, replaces: str, launches: int, max_abs_err: fl
 
 def main() -> int:
     start = time.perf_counter()
-    phase("1/15 device")
+    phase("1/19 device")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs the port on the card only",
               file=sys.stderr)
@@ -850,14 +950,15 @@ def main() -> int:
     phase(f"device {kind} | nvidia-smi: {smi} | torch {torch.__version__} "
           f"cuda {torch.version.cuda} | python {sys.version.split()[0]}")
 
-    phase("2/15 build (one nvcc per kernel, started together)")
+    phase("2/19 build (one nvcc per kernel, started together)")
     t0 = time.perf_counter()
-    kernels = (fused_world.KERNEL, fused_world.CONTACT_KERNEL, track_engine.KERNEL,
-               pixels.KERNEL)
+    kernels = (fused_world.KERNEL, fused_world.CONTACT_KERNEL, fused_world.SOLVE_KERNEL,
+               track_engine.KERNEL, pixels.KERNEL)
     with ThreadPoolExecutor(len(kernels)) as pool:
         list(pool.map(_cuda.load, kernels))
     fused_world._library(fused_world.KERNEL)
     fused_world._library(fused_world.CONTACT_KERNEL)
+    fused_world._library(fused_world.SOLVE_KERNEL)
     track_engine._library()
     pixels._library()
     for name in kernels:
@@ -868,11 +969,12 @@ def main() -> int:
     cfg = EnvConfig(num_agents=1, use_random_direction=False)
     actions = cycled_actions(E, cfg.num_agents, dev)
 
-    phase(f"3/15 K1 vs plain at E={E} after 20 steps")
+    phase(f"3/19 K1 vs plain at E={E} after 20 steps")
     state = penv.reset_batch(cfg, SEEDS, E)
     for t in range(20):
         state, _, _ = penv.step(cfg, state, actions[t % 8])
     pre = apply_controls(state.cars, actions[20 % 8])
+    pre1, road1 = pre, state.wheel_on_road          # K3 at N = 1 (phase 10) reads it too
     k_cars, k_skid, _ = fused_world.island_step(pre, state.wheel_on_road, state.contacts)
     p_cars, p_skid, _ = fused_world.island_step_plain(pre, state.wheel_on_road, state.contacts)
     torch.cuda.synchronize()
@@ -886,7 +988,7 @@ def main() -> int:
     if skid_miss > E // 1000:       # a threshold flag; 1-ulp force noise may flip it
         raise AssertionError(f"kernel vs plain: {skid_miss} skid flags differ")
 
-    phase(f"4/15 small input: {len(SMALL_SEEDS)} envs x {SMALL_STEPS} steps, card vs CPU")
+    phase(f"4/19 small input: {len(SMALL_SEEDS)} envs x {SMALL_STEPS} steps, card vs CPU")
     small = {d: penv.reset_batch(cfg, SMALL_SEEDS, len(SMALL_SEEDS), device=d)
              for d in ("cuda", "cpu")}
     returns = {d: 0.0 for d in small}
@@ -901,7 +1003,7 @@ def main() -> int:
     if not (ret_dev <= 2e-5 and pos_dev <= 1e-3):
         raise AssertionError("small-input run on the card disagrees with the CPU path")
 
-    phase(f"5/15 N=1 main path: reset_batch E={E} ({len(SEEDS)} tracks) + {WARMUP} "
+    phase(f"5/19 N=1 main path: reset_batch E={E} ({len(SEEDS)} tracks) + {WARMUP} "
           f"warm-up + {T} steps")
     run1 = main_path(cfg, actions, "N=1", smi)
     times1 = kernel_times(cfg, run1, actions)
@@ -912,7 +1014,7 @@ def main() -> int:
 
     cfg2 = EnvConfig(num_agents=2, use_random_direction=False)
     actions2 = cycled_actions(E, cfg2.num_agents, dev)
-    phase(f"6/15 K2 vs plain at N=2, E={E}, driven until {NEAR_SHARE:.0%} of envs are near")
+    phase(f"6/19 K2 vs plain at N=2, E={E}, driven until {NEAR_SHARE:.0%} of envs are near")
     state = penv.reset_batch(cfg2, SEEDS, E)
     for t in range(NEAR_MAX_STEPS + 1):
         pre = apply_controls(state.cars, actions2[t % 8])
@@ -937,7 +1039,7 @@ def main() -> int:
     if k_live_envs == 0:
         raise AssertionError("K2 vs plain: no env with a live contact point")
 
-    phase("7/15 rear-end ram (N=4, E=1): K2 vs plain at the first step with contact")
+    phase("7/19 rear-end ram (N=4, E=1): K2 vs plain at the first step with contact")
     ram_cfg, ram, ram_act, ram_t = ram_state(dev)
     ram_pre = apply_controls(ram.cars, ram_act)
     k_ram = fused_world.island_step(ram_pre, ram.wheel_on_road, ram.contacts)
@@ -953,7 +1055,7 @@ def main() -> int:
     if ram_id_miss:
         raise AssertionError("ram: K2's manifold ids differ from the plain version's")
 
-    phase("8/15 determinism: two K2 launches on phase 6's input")
+    phase("8/19 determinism: two K2 launches on phase 6's input")
     fin, ls_in = fused_world.pack_inputs(pre, state.wheel_on_road)
     a = fused_world.launch_contacts(fin, ls_in, cs_pre, cfg2.num_agents)
     b = fused_world.launch_contacts(fin, ls_in, cs_pre, cfg2.num_agents)
@@ -964,10 +1066,55 @@ def main() -> int:
     if not same:
         raise AssertionError("two K2 launches on the same input differ")
 
-    phase(f"9/15 N=2 main path: reset_batch E={E} ({len(SEEDS)} tracks) + {WARMUP} "
+    # K3's path: world_step_batched on the card, its count set to 0 here and
+    # read after phase 11; each call below launches K3 once.
+    fused_world.world_step_batched.launches = 0
+    phase(f"9/19 K3 vs plain at N=2, E={E}, full {cfg2.velocity_iters}/"
+          f"{cfg2.position_iters}, on phase 6's input (plain tire model, Collide, make_bundle)")
+    solve2 = solve_inputs(pre, state.wheel_on_road, cs_pre, 2)
+    devs3 = compare_solve(solve2, 2, "K3 vs plain (N=2)")
+
+    phase("10/19 K3 vs plain on phase 7's ram (N=4, E=1) and at N=1, E=4096 (no bundle)")
+    devs3.update({f"ram {f}": v for f, v in compare_solve(
+        solve_inputs(ram_pre, ram.wheel_on_road, ram.contacts, 4), 4,
+        "K3 vs plain (ram, N=4)").items()})
+    devs3.update({f"N=1 {f}": v for f, v in compare_solve(
+        solve_inputs(pre1, road1, None, 1), 1, "K3 vs plain (N=1)").items()})
+
+    phase("11/19 K2 vs plain Collide + K3 on phase 6's input")
+    post2, _, _, _, skid2, man2 = solve2
+    k3_cars, (k3_ni, k3_ti) = fused_world.world_step_batched(*solve2[:4], 2)
+    k3_out = (k3_cars, skid2, ContactState(normal_imp=k3_ni, tangent_imp=k3_ti, ids=man2.ids))
+    devs23, id_miss23, skid_miss23 = compare_contact_step(k_out, k3_out, pre, cs_pre,
+                                                          "K2 vs plain Collide + K3")
+    phase(f"envs whose manifold ids differ (K2 vs plain Collide): {id_miss23}; skid flags "
+          f"differing: {skid_miss23}")
+    if id_miss23 > E // 1000 or skid_miss23 > E // 1000:
+        raise AssertionError(f"K2 vs plain Collide + K3: {id_miss23} envs' ids, {skid_miss23} "
+                             f"skid flags differ")
+    k3_launches = fused_world.world_step_batched.launches
+    phase(f"K3 launches on its path (phases 9-11): {k3_launches}")
+    if k3_launches != 4:
+        raise AssertionError(f"K3 launched {k3_launches} times on its path, expected 4")
+
+    phase(f"12/19 K3 determinism and times at N=2, E={E} on phase 6's input, beside K2 on {smi}")
+    fin3, ls3 = fused_world.pack_solve_inputs(*solve2[:3])
+    a = fused_world.launch_solve(fin3, ls3, solve2[3], 2)
+    b = fused_world.launch_solve(fin3, ls3, solve2[3], 2)
+    same3 = all(torch.equal(x, y) for x, y in zip(a, b))
+    phase(f"two K3 launches bit-identical: {same3}")
+    if not same3:
+        raise AssertionError("two K3 launches on the same input differ")
+    times3 = solve_times(pre, state.wheel_on_road, cs_pre, 2)
+
+    phase(f"13/19 N=2 main path: reset_batch E={E} ({len(SEEDS)} tracks) + {WARMUP} "
           f"warm-up + {T} steps")
     run2 = main_path(cfg2, actions2, "N=2", smi)
     times2 = kernel_times(cfg2, run2, actions2)
+    last2 = run2["state"]
+    phase("K3 beside K2 on the main path's last input (more envs near than phase 6's):")
+    times3_last = solve_times(apply_controls(last2.cars, actions2[(WARMUP + T) % 8]),
+                              last2.wheel_on_road, last2.contacts, 2)
     track2 = track_times(cfg2, run2, actions2)
     all2 = {**devs2, **{f"ram {f}": v for f, v in devs_ram.items()}}
     k2 = report(fused_world.CONTACT_KERNEL,
@@ -979,7 +1126,7 @@ def main() -> int:
                 live_envs=k_live_envs,
                 id_miss_envs=id_miss, ram_max_normal_imp=ram_imp)
 
-    phase(f"10/15 K4/K5 vs plain at E={E}, N=1 and N=2: a stepped state and a spawn tick")
+    phase(f"14/19 K4/K5 vs plain at E={E}, N=1 and N=2: a stepped state and a spawn tick")
     checks = {**track_phase(cfg, actions), **track_phase(cfg2, actions2)}
     worst = max(r["bonus_err"] for r in checks.values())
     k45 = report(track_engine.KERNEL, "multi_car_racing_tpu_torch/csrc/track_pass.cu",
@@ -990,20 +1137,20 @@ def main() -> int:
                  checks={k: {"gained": r["gained"], "second_visitor_shares": r["share"]}
                          for k, r in checks.items()})
 
-    phase(f"11/15 state-PPO rollout: E={E}, N={ROLLOUT_N}, pool of {len(POOL_SEEDS)} host "
+    phase(f"15/19 state-PPO rollout: E={E}, N={ROLLOUT_N}, pool of {len(POOL_SEEDS)} host "
           f"tracks, chunks of {ROLLOUT_CHUNK} steps, past the time limit")
     rollout = rollout_phase(smi, dev)
 
-    phase("12/15 K6 vs plain: N=2 spawn tick, steady, mixed and backward at E=4096; N=1 CW; "
+    phase("16/19 K6 vs plain: N=2 spawn tick, steady, mixed and backward at E=4096; N=1 CW; "
           "N=4 ego colour; the golden frames")
     pool = penv.make_track_pool(EnvConfig(num_agents=2), POOL_SEEDS, device=dev)
     px_checks = pixel_checks(dev, pool)
 
-    phase(f"13/15 pixel main path: reset_batch E={E}, N=2 + {WARMUP} warm-up + {T} steps, a "
+    phase(f"17/19 pixel main path: reset_batch E={E}, N=2 + {WARMUP} warm-up + {T} steps, a "
           f"frame after the reset and after every step")
     px_run = pixel_main_path(smi, dev)
 
-    phase(f"14/15 pixel-PPO env side: E={PPO_E}, N=2, {PPO_CHUNKS} chunks of {PPO_DECISIONS} "
+    phase(f"18/19 pixel-PPO env side: E={PPO_E}, N=2, {PPO_CHUNKS} chunks of {PPO_DECISIONS} "
           f"decisions x {PPO_REPEAT} steps, autoreset, past the time limit")
     px_rollout = pixel_rollout_phase(smi, dev, pool)
     k6 = report(pixels.KERNEL, "multi_car_racing_tpu_torch/csrc/paint_view.cu",
@@ -1020,8 +1167,23 @@ def main() -> int:
                             "flag_views": r["flag_views"]}
                         for k, r in px_checks["checks"].items()})
 
-    phase(f"15/15 report: every phase passed in {time.perf_counter() - start:.1f} s")
-    print(json.dumps({"kernels": [k1, k2, k45, k6], "rollout": rollout,
+    k3 = report(fused_world.SOLVE_KERNEL, "multi_car_racing_tpu_torch/csrc/solve_island.cu",
+                SOLVE_TPU_KERNEL, k3_launches,
+                max(d for f, (d, _, _) in devs3.items() if not f.endswith("fuel_spent")),
+                max(max(rv, rs) for _, rv, rs in devs3.values()),
+                {k: times3[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+                main_path="world_step_batched (phases 9-11)",
+                launches_env_step=run2["solve_launches"],
+                k2_ms_same_input=times3["k2_ms_same_input"],
+                solve_share_of_k2=times3["solve_share_of_k2"],
+                plain_collide_ms=times3["plain_collide_ms"],
+                **{f"{k}_main_path_last_input": times3_last[k] for k in
+                   ("ms", "bound_ms", "k2_ms_same_input", "solve_share_of_k2")},
+                k2_vs_collide_k3_max_err_over_bar=max(max(rv, rs) for _, rv, rs in
+                                                      devs23.values()),
+                k2_vs_collide_k3_id_miss_envs=id_miss23)
+    phase(f"19/19 report: every phase passed in {time.perf_counter() - start:.1f} s")
+    print(json.dumps({"kernels": [k1, k2, k3, k45, k6], "rollout": rollout,
                       "pixel_main_path": {k: v for k, v in px_run.items()},
                       "pixel_rollout": px_rollout}), flush=True)
     print(smi, flush=True)

@@ -3,10 +3,11 @@
 There are no weights on the physics path: what crosses is state. Both
 directions go through a nested mapping of field name to numpy array — the
 JAX ``EnvState`` (with its ``Track``, ``CarState``, ``ContactState`` and
-``SkidState``) after ``jax.device_get`` reads that way by attribute, so the
-port needs no JAX type. The JAX dtypes are kept: int32 for ``limit_state``,
-``steps``, ``tile_visited_count``, ``n_tiles``, ``ids`` and ``head``; bool
-masks; float32 elsewhere.
+``SkidState``) after ``jax.device_get`` reads that way by attribute, and so
+does a ``ContactBundle`` with its ``Manifolds``, so the port needs no JAX
+type. The JAX dtypes are kept: int32 for ``limit_state``, ``steps``,
+``tile_visited_count``, ``n_tiles``, ``ids`` and ``head``; bool masks;
+float32 elsewhere.
 """
 
 from __future__ import annotations
@@ -18,12 +19,13 @@ import numpy as np
 import torch
 
 from .env import EnvState, SkidState
-from .physics.collide import ContactState
+from .physics.collide import ContactBundle, ContactState, Manifolds
 from .physics.state import CarState
 from .track.common import Track
 from .util import resolve_device
 
-_NESTED = {"cars": CarState, "track": Track, "contacts": ContactState, "skid": SkidState}
+_NESTED = {"cars": CarState, "track": Track, "contacts": ContactState, "skid": SkidState,
+           "man": Manifolds}
 
 
 def _get(tree, name: str):
@@ -95,3 +97,11 @@ def env_state_to_numpy(state: EnvState) -> dict:
 def cars_from_numpy(tree, device=None) -> CarState:
     """A batched port ``CarState`` from a field-name tree of numpy arrays."""
     return _from_tree(CarState, tree, resolve_device(device))
+
+
+def bundle_from_numpy(tree, device=None) -> ContactBundle:
+    """A batched port ``ContactBundle`` (with its ``Manifolds``) on ``device``
+    (default CUDA) from a field-name tree of numpy arrays, env axis first:
+    the JAX package's ``collide.ContactBundle`` after ``jax.device_get``, so
+    both sides can solve from the same manifolds."""
+    return _from_tree(ContactBundle, tree, resolve_device(device))

@@ -1,13 +1,15 @@
 // The per-car chain of the physics island, shared by the port's island
-// kernels (joints_island.cu, one car per thread; contact_island.cu, one car
-// per lane of an env's warp): the tire model with force integration
-// (cd:172-266), the revolute-joint limit init, the joints' warm start and
-// velocity iterations, Box2D's clamped position integration and the joints'
-// position iterations, on one car held in registers. The arithmetic follows
-// the plain PyTorch version, multi_car_racing_tpu_torch/physics/
-// fused_world.py :: island_step_plain: fp32 throughout; precise
-// sinf/cosf/sqrtf and division (no fast math); sign(0) == 0; 1/det through a
-// select, never a division that is masked later.
+// kernels (joints_island.cu, one car per thread; contact_island.cu and
+// solve_island.cu, one car per lane of an env's warp): the tire model with
+// force integration (cd:172-266) -- or, for solve_island.cu, the force
+// integration of a car the tire model has already run on -- the
+// revolute-joint limit init, the joints' warm start and velocity iterations,
+// Box2D's clamped position integration and the joints' position iterations,
+// on one car held in registers. The arithmetic follows the plain PyTorch
+// version, multi_car_racing_tpu_torch/physics/fused_world.py ::
+// island_step_plain: fp32 throughout; precise sinf/cosf/sqrtf and division
+// (no fast math); sign(0) == 0; 1/det through a select, never a division that
+// is masked later.
 
 #pragma once
 
@@ -31,6 +33,16 @@ constexpr int OUT_JNT = 30;
 constexpr int OUT_TIRE = 46;    // (spin, phase, skid) x 4
 constexpr int OUT_FUEL = 58;
 constexpr int N_OUT = 59;
+// solve_island.cu's rows: a car after the tire model, with its wheel forces
+// and servo speeds (fused_world.SOLVE_IN_ROWS); its output is the first
+// N_SOLVE_OUT rows of the layout above (hull, wheels, joints).
+constexpr int SIN_HULL = 0;     // vx, vy, w, cx, cy, a
+constexpr int SIN_WHEEL = 6;    // (vx, vy, w, cx, cy, a) x 4 wheels
+constexpr int SIN_FORCE = 30;   // (fx, fy) x 4
+constexpr int SIN_MSPEED = 38;  // 4 wheels
+constexpr int SIN_JNT = 42;     // (jix, jiy, jiz, motor) x 4
+constexpr int N_SIN = 58;
+constexpr int N_SOLVE_OUT = OUT_TIRE;
 
 // Scalar parameters of the car chain, in the order of fused_world.PARAM_NAMES.
 enum Param {
@@ -94,8 +106,21 @@ struct JointK {
   float cz3x[4], cz3y[4], cz3z[4];
 };
 
+// The joint limit-state init (b2RevoluteJoint::InitVelocityConstraints): a
+// limit that is newly active, or was released, drops its accumulated
+// impulse.
+__device__ __forceinline__ void limit_init(Car& c, const float* p) {
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const float ja = c.wa[k] - c.ha;
+    const int nls = ja <= p[P_LOWER] ? 1 : (ja >= p[P_UPPER] ? 2 : 0);
+    if (!(nls == c.ls[k] && nls != 0)) c.jiz[k] = 0.f;
+    c.ls[k] = nls;
+  }
+}
+
 // Loads car i, runs the tire model with force integration (cd:172-266) and
-// the joint limit-state init (b2RevoluteJoint::InitVelocityConstraints).
+// the joint limit-state init.
 __device__ __forceinline__ void car_begin(Car& c, const float* __restrict__ fin,
                                           const int* __restrict__ lsin, size_t i,
                                           size_t sn, const float* p) {
@@ -147,13 +172,35 @@ __device__ __forceinline__ void car_begin(Car& c, const float* __restrict__ fin,
     c.wvy[k] = c.wvy[k] + p[P_DT_MB] * fy;
   }
 #undef IN
+  limit_init(c, p);
+}
+
+// Loads car i of solve_island.cu's rows (after the tire model), integrates
+// its wheel forces as the plain world_step does, wv + (dt * MB) * force with
+// each operation rounded on its own, and runs the joint limit-state init.
+__device__ __forceinline__ void car_begin_solved(Car& c, const float* __restrict__ fin,
+                                                 const int* __restrict__ lsin, size_t i,
+                                                 size_t sn, const float* p) {
+#define IN(r) fin[static_cast<size_t>(r) * sn + i]
+  c.hvx = IN(SIN_HULL + 0); c.hvy = IN(SIN_HULL + 1); c.hw = IN(SIN_HULL + 2);
+  c.hcx = IN(SIN_HULL + 3); c.hcy = IN(SIN_HULL + 4); c.ha = IN(SIN_HULL + 5);
 #pragma unroll
   for (int k = 0; k < 4; ++k) {
-    const float ja = c.wa[k] - c.ha;
-    const int nls = ja <= p[P_LOWER] ? 1 : (ja >= p[P_UPPER] ? 2 : 0);
-    if (!(nls == c.ls[k] && nls != 0)) c.jiz[k] = 0.f;
-    c.ls[k] = nls;
+    c.wvx[k] = __fadd_rn(IN(SIN_WHEEL + 0 + k), __fmul_rn(p[P_DT_MB], IN(SIN_FORCE + k)));
+    c.wvy[k] = __fadd_rn(IN(SIN_WHEEL + 4 + k), __fmul_rn(p[P_DT_MB], IN(SIN_FORCE + 4 + k)));
+    c.ww[k] = IN(SIN_WHEEL + 8 + k);
+    c.wcx[k] = IN(SIN_WHEEL + 12 + k);
+    c.wcy[k] = IN(SIN_WHEEL + 16 + k);
+    c.wa[k] = IN(SIN_WHEEL + 20 + k);
+    c.mspeed[k] = IN(SIN_MSPEED + k);
+    c.jix[k] = IN(SIN_JNT + 0 + k);
+    c.jiy[k] = IN(SIN_JNT + 4 + k);
+    c.jiz[k] = IN(SIN_JNT + 8 + k);
+    c.mimp[k] = IN(SIN_JNT + 12 + k);
+    c.ls[k] = lsin[static_cast<size_t>(k) * sn + i];
   }
+#undef IN
+  limit_init(c, p);
 }
 
 // Anchor arms, joint warm start, and the K-matrix terms of the velocity phase.
@@ -301,8 +348,23 @@ __device__ __forceinline__ void joints_position(Car& c, const float* p) {
   }
 }
 
-__device__ __forceinline__ void car_store(const Car& c, float* __restrict__ fout,
-                                          int* __restrict__ lsout, size_t i, size_t sn) {
+// The joints-only island of a car after its limit init: warm start,
+// velocity iterations, clamped integration, position iterations.
+__device__ __forceinline__ void joints_chain(Car& c, const float* p, int vel_iters,
+                                             int pos_iters) {
+  JointK jk;
+  joints_warm_start(c, jk, p);
+#pragma unroll 1
+  for (int it = 0; it < vel_iters; ++it) joints_velocity(c, jk, p);
+  integrate(c, p);
+#pragma unroll 1
+  for (int it = 0; it < pos_iters; ++it) joints_position(c, p);
+}
+
+// Stores the solved car: rows OUT_HULL..OUT_JNT and the limit states.
+__device__ __forceinline__ void car_store_solved(const Car& c, float* __restrict__ fout,
+                                                 int* __restrict__ lsout, size_t i,
+                                                 size_t sn) {
 #define OUT(r) fout[static_cast<size_t>(r) * sn + i]
   OUT(OUT_HULL + 0) = c.hvx;
   OUT(OUT_HULL + 1) = c.hvy;
@@ -322,10 +384,22 @@ __device__ __forceinline__ void car_store(const Car& c, float* __restrict__ fout
     OUT(OUT_JNT + 4 + k) = c.jiy[k];
     OUT(OUT_JNT + 8 + k) = c.jiz[k];
     OUT(OUT_JNT + 12 + k) = c.mimp[k];
+    lsout[static_cast<size_t>(k) * sn + i] = c.ls[k];
+  }
+#undef OUT
+}
+
+// Stores the car after the whole island: the solved rows, then the tire
+// model's (spin, phase, skid) and the fuel.
+__device__ __forceinline__ void car_store(const Car& c, float* __restrict__ fout,
+                                          int* __restrict__ lsout, size_t i, size_t sn) {
+  car_store_solved(c, fout, lsout, i, sn);
+#define OUT(r) fout[static_cast<size_t>(r) * sn + i]
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
     OUT(OUT_TIRE + 0 + k) = c.spin[k];
     OUT(OUT_TIRE + 4 + k) = c.phase[k];
     OUT(OUT_TIRE + 8 + k) = c.skid[k];
-    lsout[static_cast<size_t>(k) * sn + i] = c.ls[k];
   }
   OUT(OUT_FUEL) = c.fuel;
 #undef OUT

@@ -33,7 +33,7 @@
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 // -Xcompiler -fPIC (multi_car_racing_tpu_torch/_cuda.py); plain C interface
 // loaded with ctypes. The chain itself, the row layout and the parameters
-// are car_chain.cuh's, shared with contact_island.cu.
+// are car_chain.cuh's, shared with contact_island.cu and solve_island.cu.
 
 #include "car_chain.cuh"
 
@@ -55,13 +55,7 @@ joints_island_kernel(const float* __restrict__ fin, const int* __restrict__ lsin
 
   Car car;
   car_begin(car, fin, lsin, i, sn, p);        // tire model, limit states
-  JointK jk;
-  joints_warm_start(car, jk, p);
-#pragma unroll 1
-  for (int it = 0; it < vel_iters; ++it) joints_velocity(car, jk, p);
-  integrate(car, p);
-#pragma unroll 1
-  for (int it = 0; it < pos_iters; ++it) joints_position(car, p);
+  joints_chain(car, p, vel_iters, pos_iters);
   car_store(car, fout, lsout, i, sn);
 }
 

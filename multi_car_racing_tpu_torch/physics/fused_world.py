@@ -22,6 +22,16 @@ either goes through its kernel or raises.
 ``island_step.launches`` counts K1 launches and ``island_step.contact_launches``
 K2 launches (and nothing else), so a run can show that its main path went
 through the kernels.
+
+``world_step_batched`` is the solve alone, with manifolds and warm impulses
+computed outside (a ContactBundle): force integration, the joint limit init
+and the island solve of cars the tire model has already run on. On CUDA
+tensors it launches ``csrc/solve_island.cu`` (K3), which replaces the TPU
+kernel ``pallas_world.py::_make_solve_kernel``; on CPU tensors it runs
+``world.world_step`` on the same bundle. It is the differential harness for
+K2: K2 against the plain Collide pass followed by K3 holds K2's in-kernel
+Collide apart from its solve. ``world_step_batched.launches`` counts K3
+launches.
 """
 
 from __future__ import annotations
@@ -57,9 +67,9 @@ PARAM_NAMES = (
 )
 
 
-def param_values() -> tuple:
-    """The kernel's scalar parameters (float64 here, float32 on the card)."""
-    dt = C.DT
+def param_values(dt: float = C.DT) -> tuple:
+    """The kernel's scalar parameters at step ``dt`` (float64 here, float32
+    on the card)."""
     ma, ia = float(shapes.HULL_INV_MASS), float(shapes.HULL_INV_I)
     mb, ib = float(shapes.WHEEL_INV_MASS), float(shapes.WHEEL_INV_I)
     v = dict(
@@ -226,6 +236,20 @@ def contact_island_flops(n_cars: int, n_limit_joints: int, num_cars: int,
             + n_touched_bodies * FLOPS_BODY_UPDATE * (1 + 2 * k_vel + k_pos))
 
 
+def _live_counts(point_ok: torch.Tensor, num_cars: int) -> dict:
+    """Manifold rows with a live point, live contact points, and for each
+    point index the bodies that its live points touch (summed over envs and
+    point indices), of a (E, MM, 2) point_ok."""
+    _, rows_a, rows_b, *_ = collide.tables(num_cars)
+    live = point_ok.transpose(1, 2).to(torch.int32)                  # (E, 2, MM)
+    touches = torch.zeros((*live.shape[:2], 5 * num_cars), dtype=torch.int32,
+                          device=live.device)
+    for rows in (rows_a, rows_b):
+        touches.index_add_(2, torch.as_tensor(rows, device=live.device), live)
+    return dict(n_live_rows=int(point_ok.any(-1).sum()), n_live_points=int(point_ok.sum()),
+                n_touched_bodies=int((touches > 0).sum()))
+
+
 def contact_island_work(cars: CarState) -> dict:
     """What K2's work depends on in this input (pre-solve cars, two or more
     per env), counted with the plain versions: near envs, manifold rows
@@ -234,13 +258,7 @@ def contact_island_work(cars: CarState) -> dict:
     n = cars.hull_a.shape[1]
     near = near_flags(cars)
     ok = collide.collide(cars, n).point_ok & near[:, None, None]    # (E, MM, 2)
-    _, rows_a, rows_b, *_ = collide.tables(n)
-    live = ok.transpose(1, 2).to(torch.int32)                        # (E, 2, MM)
-    touches = torch.zeros((*live.shape[:2], 5 * n), dtype=torch.int32, device=live.device)
-    for rows in (rows_a, rows_b):
-        touches.index_add_(2, torch.as_tensor(rows, device=live.device), live)
-    return dict(n_near_envs=int(near.sum()), n_live_rows=int(ok.any(-1).sum()),
-                n_live_points=int(ok.sum()), n_touched_bodies=int((touches > 0).sum()))
+    return dict(n_near_envs=int(near.sum()), **_live_counts(ok, n))
 
 
 def contact_island_bytes(n_cars: int, num_cars: int) -> int:
@@ -354,8 +372,10 @@ def _library(name: str = KERNEL):
         vp, ci = ctypes.c_void_p, ctypes.c_int
         if name == KERNEL:
             fn.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, vp]
-        else:
+        elif name == CONTACT_KERNEL:
             fn.argtypes = [vp] * 13 + [ci] * 7 + [vp]
+        else:
+            fn.argtypes = [vp] * 15 + [ci] * 7 + [vp]
         fn.restype = ci
         err = getattr(lib, f"{name}_error_string")
         err.argtypes = [ci]
@@ -363,10 +383,10 @@ def _library(name: str = KERNEL):
     return lib
 
 
-def _params(device: torch.device) -> torch.Tensor:
-    key = str(device)
+def _params(device: torch.device, dt: float = C.DT) -> torch.Tensor:
+    key = ("params", str(device), float(dt))
     if key not in _params_cache:
-        _params_cache[key] = torch.tensor(param_values(), dtype=torch.float32,
+        _params_cache[key] = torch.tensor(param_values(dt), dtype=torch.float32,
                                           device=device)
     return _params_cache[key]
 
@@ -382,25 +402,33 @@ def _contact_tables(device: torch.device, num_cars: int):
     return _params_cache[key]
 
 
+def _check_tensors(label: str, dev: torch.device, specs, contiguous: bool = True) -> None:
+    """Each (name, tensor, dtype, shape) of ``specs`` must be a tensor of that
+    dtype and shape on ``dev``, and contiguous if ``contiguous`` (a kernel
+    reads it as it lies); raises ValueError otherwise."""
+    for name, t, dtype, shape in specs:
+        if (t.dtype != dtype or t.device != dev or tuple(t.shape) != tuple(shape)
+                or (contiguous and not t.is_contiguous())):
+            raise ValueError(f"{label}: {name} must be a {'contiguous ' * contiguous}{dtype} "
+                             f"{tuple(shape)} tensor on {dev}, got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}"
+                             + (" (not contiguous)" if contiguous and not t.is_contiguous()
+                                else ""))
+
+
 def _check(cars: CarState, wheel_on_road: torch.Tensor):
     E, N = cars.hull_a.shape
-    dev = cars.hull_a.device
+    f32 = torch.float32
     float_shapes = dict(hull_c=(E, N, 2), hull_a=(E, N), hull_v=(E, N, 2),
                         hull_w=(E, N), wheel_c=(E, N, 4, 2), wheel_a=(E, N, 4),
                         wheel_v=(E, N, 4, 2), wheel_w=(E, N, 4),
                         joint_impulse=(E, N, 4, 3), motor_impulse=(E, N, 4),
                         gas=(E, N, 4), brake=(E, N, 4), steer=(E, N, 4),
                         spin=(E, N, 4), phase=(E, N, 4), fuel_spent=(E, N))
-    for name, shape in float_shapes.items():
-        t = getattr(cars, name)
-        if t.dtype != torch.float32 or t.device != dev or tuple(t.shape) != shape:
-            raise ValueError(f"island_step: {name} must be float32 {shape} on {dev}, "
-                             f"got {t.dtype} {tuple(t.shape)} on {t.device}")
-    for name, t, want in (("limit_state", cars.limit_state, torch.int32),
-                          ("wheel_on_road", wheel_on_road, torch.bool)):
-        if t.dtype != want or t.device != dev or tuple(t.shape) != (E, N, 4):
-            raise ValueError(f"island_step: {name} must be {want} {(E, N, 4)} on {dev}, "
-                             f"got {t.dtype} {tuple(t.shape)} on {t.device}")
+    _check_tensors("island_step", cars.hull_a.device, [
+        *((name, getattr(cars, name), f32, shape) for name, shape in float_shapes.items()),
+        ("limit_state", cars.limit_state, torch.int32, (E, N, 4)),
+        ("wheel_on_road", wheel_on_road, torch.bool, (E, N, 4))], contiguous=False)
     return E, N
 
 
@@ -427,6 +455,29 @@ def pack_inputs(cars: CarState, wheel_on_road: torch.Tensor):
     return fin.contiguous(), ls_in
 
 
+def _solved_fields(fout: torch.Tensor, ls_out: torch.Tensor, E: int, N: int) -> dict:
+    """The CarState fields of the solved rows OUT_HULL..OUT_JNT and the limit
+    states of a kernel's (rows, E*N) outputs."""
+    fo = fout.view(-1, E, N)
+
+    def w4(r):                                   # rows r..r+3 -> (E, N, 4)
+        return fo[r:r + 4].permute(1, 2, 0)
+
+    def w4x2(r):                                 # rows r..r+7 -> (E, N, 4, 2)
+        return fo[r:r + 8].view(2, 4, E, N).permute(2, 3, 1, 0)
+
+    h, w, j = OUT_ROWS["OUT_HULL"], OUT_ROWS["OUT_WHEEL"], OUT_ROWS["OUT_JNT"]
+    return dict(
+        hull_v=fo[h:h + 2].permute(1, 2, 0), hull_w=fo[h + 2],
+        hull_c=fo[h + 3:h + 5].permute(1, 2, 0), hull_a=fo[h + 5],
+        wheel_v=w4x2(w), wheel_w=w4(w + 8),
+        wheel_c=w4x2(w + 12), wheel_a=w4(w + 20),
+        joint_impulse=fo[j:j + 12].view(3, 4, E, N).permute(2, 3, 1, 0),
+        motor_impulse=w4(j + 12),
+        limit_state=ls_out.view(4, E, N).permute(1, 2, 0),
+    )
+
+
 def unpack_outputs(cars: CarState, fout: torch.Tensor, ls_out: torch.Tensor):
     """The kernel's output rows -> (new CarState, skid (E, N, 4) bool)."""
     E, N = cars.hull_a.shape
@@ -435,22 +486,9 @@ def unpack_outputs(cars: CarState, fout: torch.Tensor, ls_out: torch.Tensor):
     def w4(r):                                   # rows r..r+3 -> (E, N, 4)
         return fo[r:r + 4].permute(1, 2, 0)
 
-    def w4x2(r):                                 # rows r..r+7 -> (E, N, 4, 2)
-        return fo[r:r + 8].view(2, 4, E, N).permute(2, 3, 1, 0)
-
-    h, w, j, t = (OUT_ROWS["OUT_HULL"], OUT_ROWS["OUT_WHEEL"],
-                  OUT_ROWS["OUT_JNT"], OUT_ROWS["OUT_TIRE"])
-    new = cars.replace(
-        hull_v=fo[h:h + 2].permute(1, 2, 0), hull_w=fo[h + 2],
-        hull_c=fo[h + 3:h + 5].permute(1, 2, 0), hull_a=fo[h + 5],
-        wheel_v=w4x2(w), wheel_w=w4(w + 8),
-        wheel_c=w4x2(w + 12), wheel_a=w4(w + 20),
-        joint_impulse=fo[j:j + 12].view(3, 4, E, N).permute(2, 3, 1, 0),
-        motor_impulse=w4(j + 12),
-        limit_state=ls_out.view(4, E, N).permute(1, 2, 0),
-        spin=w4(t), phase=w4(t + 4),
-        fuel_spent=fo[OUT_ROWS["OUT_FUEL"]],
-    )
+    t = OUT_ROWS["OUT_TIRE"]
+    new = cars.replace(**_solved_fields(fout, ls_out, E, N), spin=w4(t), phase=w4(t + 4),
+                       fuel_spent=fo[OUT_ROWS["OUT_FUEL"]])
     return new, w4(t + 8) > 0.5
 
 
@@ -485,12 +523,10 @@ def launch(fin: torch.Tensor, ls_in: torch.Tensor, n_cars: int,
 
 def _check_contacts(cs: ContactState, E: int, N: int, dev: torch.device):
     mm = len(collide.car_pairs(N)) * collide.M_PER_PAIR
-    for name, t, want, shape in (("normal_imp", cs.normal_imp, torch.float32, (E, mm, 2)),
-                                 ("tangent_imp", cs.tangent_imp, torch.float32, (E, mm, 2)),
-                                 ("ids", cs.ids, torch.int32, (E, mm))):
-        if t.dtype != want or t.device != dev or tuple(t.shape) != shape:
-            raise ValueError(f"island_step: contacts.{name} must be {want} {shape} on "
-                             f"{dev}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+    _check_tensors("island_step", dev, (
+        ("contacts.normal_imp", cs.normal_imp, torch.float32, (E, mm, 2)),
+        ("contacts.tangent_imp", cs.tangent_imp, torch.float32, (E, mm, 2)),
+        ("contacts.ids", cs.ids, torch.int32, (E, mm))), contiguous=False)
     return mm
 
 
@@ -566,3 +602,194 @@ def island_step(cars: CarState, wheel_on_road: torch.Tensor,
 
 island_step.launches = 0
 island_step.contact_launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K3 (csrc/solve_island.cu): the solve alone, from a ContactBundle.
+# ---------------------------------------------------------------------------
+
+SOLVE_KERNEL = "solve_island"
+
+# Row offsets of K3's packed (rows, E*N) input, a car after the tire model;
+# equal to the constexprs SIN_* in csrc/car_chain.cuh. Its output is the
+# first N_SOLVE_OUT rows of OUT_ROWS (hull, wheels, joints).
+SOLVE_IN_ROWS = dict(SIN_HULL=0, SIN_WHEEL=6, SIN_FORCE=30, SIN_MSPEED=38, SIN_JNT=42,
+                     N_SIN=58)
+N_SOLVE_OUT = OUT_ROWS["OUT_TIRE"]
+FLOPS_FORCE_INTEGRATION = 4 * 4     # per car: wv += (dt * MB) * force, 4 wheels x 2 axes
+
+
+def solve_island_flops(n_cars: int, n_limit_joints: int, n_live_points: int,
+                       n_touched_bodies: int, velocity_iters: int = C.VELOCITY_ITERS,
+                       position_iters: int = C.POSITION_ITERS,
+                       contact_velocity_iters: int = C.CONTACT_VELOCITY_ITERS,
+                       contact_position_iters: int = C.CONTACT_POSITION_ITERS) -> int:
+    """fp32 operations of one K3 call on this call's data
+    (:func:`solve_island_work` counts the last two arguments): K2's count
+    without the tire model, the broadphase and the Collide pass, with the
+    force integration."""
+    k_vel = min(contact_velocity_iters, velocity_iters)
+    k_pos = min(contact_position_iters, position_iters)
+    return (island_flops(n_cars, n_limit_joints, velocity_iters, position_iters)
+            - n_cars * 4 * 117 + n_cars * FLOPS_FORCE_INTEGRATION
+            + n_live_points * (FLOPS_POINT_BUNDLE + FLOPS_POINT_WARM
+                               + k_vel * FLOPS_POINT_VEL + k_pos * FLOPS_POINT_POS)
+            + n_touched_bodies * FLOPS_BODY_UPDATE * (1 + 2 * k_vel + k_pos))
+
+
+def solve_island_work(bundle: collide.ContactBundle | None, num_cars: int) -> dict:
+    """What K3's contact work depends on in this bundle: live contact points
+    and, per point index, the bodies that they touch (zero without one)."""
+    if bundle is None:
+        return dict(n_live_points=0, n_touched_bodies=0)
+    counts = _live_counts(bundle.man.point_ok, num_cars)
+    return dict(n_live_points=counts["n_live_points"],
+                n_touched_bodies=counts["n_touched_bodies"])
+
+
+# Bytes of one bundle row that K3 reads (normal 2, points 4, separations 2,
+# warm impulses 4 floats; point_ok 2 bytes) and writes (4 impulse floats).
+SOLVE_ROW_BYTES = 12 * 4 + 2 + 4 * 4
+
+
+def solve_island_bytes(n_cars: int, n_rows: int) -> int:
+    """Bytes K3 must move: each car's packed input rows and limit states read
+    once and its solved rows and limit states written once, and each of the
+    ``n_rows`` = E * MM bundle rows read once and its impulses written once."""
+    return (n_cars * 4 * (SOLVE_IN_ROWS["N_SIN"] + 4 + N_SOLVE_OUT + 4)
+            + n_rows * SOLVE_ROW_BYTES)
+
+
+def pack_solve_inputs(cars: CarState, wheel_force: torch.Tensor, motor_speed: torch.Tensor):
+    """A car after the tire model, its wheel forces (E, N, 4, 2) and servo
+    speeds (E, N, 4) -> K3's (58, E*N) float32 rows and (4, E*N) int32 limit
+    states, both contiguous, car index e*N + n."""
+    E, N = cars.hull_a.shape
+
+    def w4(x):                                   # (E, N, 4) -> (4, E, N)
+        return x.permute(2, 0, 1)
+
+    fin = torch.cat([
+        cars.hull_v.permute(2, 0, 1), cars.hull_w[None],
+        cars.hull_c.permute(2, 0, 1), cars.hull_a[None],
+        w4(cars.wheel_v[..., 0]), w4(cars.wheel_v[..., 1]), w4(cars.wheel_w),
+        w4(cars.wheel_c[..., 0]), w4(cars.wheel_c[..., 1]), w4(cars.wheel_a),
+        w4(wheel_force[..., 0]), w4(wheel_force[..., 1]), w4(motor_speed),
+        w4(cars.joint_impulse[..., 0]), w4(cars.joint_impulse[..., 1]),
+        w4(cars.joint_impulse[..., 2]), w4(cars.motor_impulse),
+    ]).reshape(SOLVE_IN_ROWS["N_SIN"], E * N)
+    ls_in = w4(cars.limit_state).reshape(4, E * N).contiguous()
+    return fin.contiguous(), ls_in
+
+
+def _bundle_specs(bundle: collide.ContactBundle, E: int, mm: int):
+    f32 = torch.float32
+    man = bundle.man
+    return (("normal", man.normal, f32, (E, mm, 2)),
+            ("point", man.point, f32, (E, mm, 2, 2)),
+            ("separation", man.separation, f32, (E, mm, 2)),
+            ("point_ok", man.point_ok, torch.bool, (E, mm, 2)),
+            ("normal_imp", bundle.normal_imp, f32, (E, mm, 2)),
+            ("tangent_imp", bundle.tangent_imp, f32, (E, mm, 2)))
+
+
+def launch_solve(fin: torch.Tensor, ls_in: torch.Tensor,
+                 bundle: collide.ContactBundle | None, num_cars: int,
+                 velocity_iters: int = C.VELOCITY_ITERS,
+                 position_iters: int = C.POSITION_ITERS,
+                 contact_velocity_iters: int = C.CONTACT_VELOCITY_ITERS,
+                 contact_position_iters: int = C.CONTACT_POSITION_ITERS,
+                 dt: float = C.DT):
+    """Launch K3 on packed car rows (from :func:`pack_solve_inputs`, car
+    index e*num_cars + n) and a bundle's rows (or none: the joints-only
+    island), on the current stream. Every input must already be contiguous
+    on the card: the wrapper raises rather than copying. Returns (fout
+    (46, n), ls_out (4, n), normal_imp, tangent_imp), the impulses (E, MM, 2)
+    or None without a bundle. Counts the launch in
+    ``world_step_batched.launches``."""
+    dev = fin.device
+    n_cars = fin.shape[1] if fin.dim() == 2 else -1
+    E = n_cars // num_cars if num_cars > 0 else 0
+    if dev.type != "cuda" or num_cars < 1 or E * num_cars != n_cars:
+        raise ValueError("launch_solve: expects CUDA (58, E*N) rows with N >= 1 cars per env")
+    _check_tensors("launch_solve", dev, (
+        ("fin", fin, torch.float32, (SOLVE_IN_ROWS["N_SIN"], n_cars)),
+        ("ls_in", ls_in, torch.int32, (4, n_cars))))
+    mm = 0
+    if bundle is not None:
+        if num_cars < 2:
+            raise ValueError("launch_solve: car-car contacts need two or more cars per env")
+        mm = len(collide.car_pairs(num_cars)) * collide.M_PER_PAIR
+        _check_tensors("launch_solve", dev, _bundle_specs(bundle, E, mm))
+    lib = _library(SOLVE_KERNEL)
+    fout = torch.empty((N_SOLVE_OUT, n_cars), dtype=torch.float32, device=dev)
+    ls_out = torch.empty((4, n_cars), dtype=torch.int32, device=dev)
+    if bundle is None:
+        ni = ti = None
+        rows = [0] * 6
+        ctab_p = itab_p = ni_p = ti_p = 0
+    else:
+        man = bundle.man
+        ni = torch.empty((E, mm, 2), dtype=torch.float32, device=dev)
+        ti = torch.empty_like(ni)
+        rows = [t.data_ptr() for t in (man.normal, man.point, man.separation, man.point_ok,
+                                       bundle.normal_imp, bundle.tangent_imp)]
+        ctab, itab = _contact_tables(dev, num_cars)
+        ctab_p, itab_p, ni_p, ti_p = ctab.data_ptr(), itab.data_ptr(), ni.data_ptr(), ti.data_ptr()
+    k_vel = min(contact_velocity_iters, velocity_iters)
+    k_pos = min(contact_position_iters, position_iters)
+    with torch.cuda.device(dev):      # the stream and the launch belong to dev
+        rc = lib.solve_island_launch(
+            fin.data_ptr(), ls_in.data_ptr(), *rows, fout.data_ptr(), ls_out.data_ptr(),
+            ni_p, ti_p, _params(dev, dt).data_ptr(), ctab_p, itab_p,
+            E, num_cars, mm, int(velocity_iters), int(position_iters), int(k_vel), int(k_pos),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if rc != 0:
+        msg = lib.solve_island_error_string(rc).decode()
+        raise RuntimeError(f"solve_island launch failed: {msg} ({rc})")
+    world_step_batched.launches += 1
+    return fout, ls_out, ni, ti
+
+
+def world_step_batched(cars: CarState, wheel_force: torch.Tensor, motor_speed: torch.Tensor,
+                       bundle: collide.ContactBundle | None, num_cars: int,
+                       velocity_iters: int = C.VELOCITY_ITERS,
+                       position_iters: int = C.POSITION_ITERS,
+                       contact_velocity_iters: int = C.CONTACT_VELOCITY_ITERS,
+                       contact_position_iters: int = C.CONTACT_POSITION_ITERS,
+                       dt: float = C.DT):
+    """The island solve of every env from manifolds computed outside: cars
+    after the tire model (E, N, ...), their wheel forces (E, N, 4, 2) and
+    servo speeds (E, N, 4), and a ContactBundle (E, MM, ...) or None. K3 on
+    CUDA tensors, ``world.world_step`` on the same bundle on CPU tensors.
+
+    Returns (new CarState, (normal_imp, tangent_imp) (E, MM, 2) or None):
+    the same results as the JAX package's ``pallas_world.world_step_batched``
+    and ``vmap(world.world_step)`` up to float noise."""
+    dev = cars.hull_a.device
+    if cars.hull_a.shape[1] != num_cars:
+        raise ValueError(f"world_step_batched: cars hold {cars.hull_a.shape[1]} cars per "
+                         f"env, num_cars is {num_cars}")
+    if dev.type == "cpu":
+        new, out = world.world_step(cars, wheel_force, motor_speed, dt, velocity_iters,
+                                    position_iters, contacts=bundle,
+                                    contact_velocity_iters=contact_velocity_iters,
+                                    contact_position_iters=contact_position_iters)
+        return new, None if out is None else (out.normal_imp, out.tangent_imp)
+    if dev.type != "cuda":
+        raise ValueError(f"world_step_batched: unsupported device {dev}")
+    E, N = cars.hull_a.shape
+    f32 = torch.float32
+    _check_tensors("world_step_batched", dev, (
+        ("wheel_force", wheel_force, f32, (E, N, 4, 2)),
+        ("motor_speed", motor_speed, f32, (E, N, 4))), contiguous=False)
+    fin, ls_in = pack_solve_inputs(cars, wheel_force, motor_speed)
+    fout, ls_out, ni, ti = launch_solve(fin, ls_in, bundle, num_cars, velocity_iters,
+                                        position_iters, contact_velocity_iters,
+                                        contact_position_iters, dt)
+    new = cars.replace(**_solved_fields(fout, ls_out, E, N))
+    return new, None if bundle is None else (ni, ti)
+
+
+world_step_batched.launches = 0

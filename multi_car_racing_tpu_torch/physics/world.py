@@ -50,15 +50,17 @@ def world_step(
     velocity_iters: int = C.VELOCITY_ITERS,
     position_iters: int = C.POSITION_ITERS,
     contacts: collide.ContactBundle | None = None,
+    contact_velocity_iters: int = C.CONTACT_VELOCITY_ITERS,
+    contact_position_iters: int = C.CONTACT_POSITION_ITERS,
 ) -> tuple[CarState, collide.ContactBundle | None]:
     """Returns (new CarState, ``contacts`` with the solved impulses for the
     warm-start carry); ``contacts`` is a ContactBundle at two or more cars
     per env, or None for the joints-only island (returned as None).
 
-    The first ``C.CONTACT_VELOCITY_ITERS`` velocity iterations run joints
-    then contacts, the rest joints only; the first
-    ``C.CONTACT_POSITION_ITERS`` position iterations run contacts then
-    joints (both are the full counts: contacts interleave throughout)."""
+    The first ``contact_velocity_iters`` velocity iterations run joints then
+    contacts, the rest joints only; the first ``contact_position_iters``
+    position iterations run contacts then joints (both default to the full
+    counts, ``C.CONTACT_*_ITERS``: contacts interleave throughout)."""
     n_cars = state.hull_a.shape[1]
     if contacts is not None and n_cars < 2:
         raise ValueError("world_step: car-car contacts need two or more cars per env")
@@ -77,7 +79,7 @@ def world_step(
     vel = joints.warm_start(vel, jdata, state.joint_impulse, state.motor_impulse)
 
     # --- 3. velocity iterations.
-    k_vel = min(C.CONTACT_VELOCITY_ITERS, velocity_iters) if contacts is not None else 0
+    k_vel = min(contact_velocity_iters, velocity_iters) if contacts is not None else 0
     carry = joints.split_velocities(vel, state.joint_impulse, state.motor_impulse)
     if k_vel:
         n_imp, t_imp = contacts.normal_imp, contacts.tangent_imp
@@ -102,7 +104,7 @@ def world_step(
     )
 
     # --- 5. position iterations (contacts then joints, like b2Island).
-    k_pos = min(C.CONTACT_POSITION_ITERS, position_iters) if contacts is not None else 0
+    k_pos = min(contact_position_iters, position_iters) if contacts is not None else 0
     for _ in range(k_pos):
         pos = collide.position_pass(pos, contacts, n_cars)
         pos = joints.join_positions(

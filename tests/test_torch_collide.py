@@ -202,9 +202,10 @@ def test_kernel_float_table_matches_the_constants():
 
 
 def test_kernel_source_declares_the_tables_layout():
-    """The enums and row offsets in csrc/contact_island.cu are the ones the
-    wrapper packs."""
-    src = (CSRC / "car_chain.cuh").read_text() + (CSRC / "contact_island.cu").read_text()
+    """The enums and row offsets in csrc/contact_island.cu and the headers it
+    includes are the ones the wrapper packs."""
+    src = "".join((CSRC / f).read_text() for f in ("car_chain.cuh", "contact_rows.cuh",
+                                                   "contact_island.cu"))
     consts = {k: int(v) for k, v in re.findall(r"constexpr int (\w+) = (\d+);", src)}
     for k, v in {**fused_world.IN_ROWS, **fused_world.OUT_ROWS}.items():
         assert consts[k] == v, k

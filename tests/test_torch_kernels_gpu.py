@@ -1,5 +1,6 @@
 """The port's CUDA kernels (joints_island, K1; contact_island, K2;
-track_pass, K4/K5; paint_view, K6) against their plain PyTorch versions on an NVIDIA card. Imports no JAX, so it runs on a machine with the card and without JAX:
+solve_island, K3; track_pass, K4/K5; paint_view, K6) against their plain
+PyTorch versions on an NVIDIA card. Imports no JAX, so it runs on a machine with the card and without JAX:
 
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_kernels_gpu.py
 
@@ -13,7 +14,7 @@ import pytest
 import torch
 
 from multi_car_racing_tpu_torch import EnvConfig, env as penv
-from multi_car_racing_tpu_torch.physics import fused_world, track_engine
+from multi_car_racing_tpu_torch.physics import collide, fused_world, tire, track_engine, world
 from multi_car_racing_tpu_torch.physics.state import apply_controls
 from multi_car_racing_tpu_torch.render import pixels
 
@@ -268,3 +269,99 @@ def test_paint_wrapper_rejects_bad_inputs_on_card():
             *(z(E, mt, dtype=torch.bool) for _ in range(4)))
     with pytest.raises(RuntimeError, match="invalid argument"):
         pixels.paint_views(*many)
+
+
+def _solve_inputs(num_envs, num_cars, steps):
+    """K3's inputs on the next step of a driven batch: the plain tire model
+    and, at two or more cars, the plain Collide pass and make_bundle. Returns
+    (pre-solve cars, wheel_on_road, contact carry, post-tire cars, force,
+    motor speed, bundle or None, skid, manifolds or None)."""
+    pre, on_road, cs = _k2_state(num_envs, num_cars, steps)
+    post, force, motor, skid = tire.tire_step(pre, on_road)
+    if num_cars == 1:
+        return pre, on_road, cs, post, force, motor, None, skid, None
+    man = collide.collide(post, num_cars)
+    return (pre, on_road, cs, post, force, motor, collide.make_bundle(man, cs, post, num_cars),
+            skid, man)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("num_cars", [1, 2, 4])
+@pytest.mark.parametrize("num_envs", [64, 4096])
+def test_solve_kernel_matches_world_step_on_card(num_envs, num_cars):
+    """solve_island (K3, through world_step_batched) against world.world_step
+    on the same card tensors and bundle, after 40 driven steps at the full
+    180/60 iterations: every CarState field and both impulses within both
+    bars (the step's change taken from K3's input), limit states equal."""
+    _need_card()
+    *_, post, force, motor, bundle, _, _ = _solve_inputs(num_envs, num_cars, 40)
+    before = fused_world.world_step_batched.launches
+    k, k_imp = fused_world.world_step_batched(post, force, motor, bundle, num_cars)
+    p, p_bundle = world.world_step(post, force, motor, contacts=bundle)
+    torch.cuda.synchronize()
+    assert fused_world.world_step_batched.launches == before + 1
+    for f in CAR_FIELDS:
+        _assert_bars(f, getattr(p, f), getattr(k, f), getattr(post, f))
+    assert torch.equal(k.limit_state, p.limit_state)
+    if bundle is None:
+        assert k_imp is None
+        return
+    _assert_bars("normal_imp", p_bundle.normal_imp, k_imp[0], bundle.normal_imp)
+    _assert_bars("tangent_imp", p_bundle.tangent_imp, k_imp[1], bundle.tangent_imp)
+
+
+@pytest.mark.gpu
+def test_solve_kernel_is_deterministic_and_sees_contacts():
+    _need_card()
+    *_, post, force, motor, bundle, _, _ = _solve_inputs(512, 2, 40)
+    assert bool(bundle.man.point_ok.any())
+    fin, ls_in = fused_world.pack_solve_inputs(post, force, motor)
+    a = fused_world.launch_solve(fin, ls_in, bundle, 2)
+    b = fused_world.launch_solve(fin, ls_in, bundle, 2)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+    assert float(a[2].max()) > 0
+
+
+@pytest.mark.gpu
+def test_contact_kernel_matches_plain_collide_and_solve_kernel_on_card():
+    """K2's island step against the plain tire model, Collide pass and
+    make_bundle followed by K3, after 40 driven steps: both bars on every
+    CarState field and both impulses, ids equal but for threshold flips in
+    at most one env."""
+    _need_card()
+    pre, on_road, cs, post, force, motor, bundle, skid, man = _solve_inputs(512, 2, 40)
+    k, ks, kc = fused_world.island_step(pre, on_road, cs)
+    s, (ni, ti) = fused_world.world_step_batched(post, force, motor, bundle, 2)
+    torch.cuda.synchronize()
+    for f in CAR_FIELDS:
+        _assert_bars(f, getattr(s, f), getattr(k, f), getattr(pre, f))
+    _assert_bars("normal_imp", ni, kc.normal_imp, cs.normal_imp)
+    _assert_bars("tangent_imp", ti, kc.tangent_imp, cs.tangent_imp)
+    assert torch.equal(k.limit_state, s.limit_state)
+    assert int((kc.ids != man.ids).any(1).sum()) <= 1
+    assert int((ks != skid).sum()) <= 1
+
+
+@pytest.mark.gpu
+def test_solve_wrapper_rejects_bad_inputs_on_card():
+    _need_card()
+    *_, post, force, motor, bundle, _, _ = _solve_inputs(4, 2, 1)
+    man = bundle.man
+
+    def refused(b, match=None, n=2, cars=post):
+        with pytest.raises(ValueError, match=match):
+            fused_world.world_step_batched(cars, force, motor, b, n)
+
+    strided = man.normal.transpose(1, 2).contiguous().transpose(1, 2)
+    assert strided.shape == man.normal.shape and not strided.is_contiguous()
+    refused(dataclasses.replace(bundle, man=dataclasses.replace(man, normal=strided)),
+            "contiguous")
+    refused(dataclasses.replace(bundle, man=dataclasses.replace(
+        man, point_ok=man.point_ok.float())))
+    refused(dataclasses.replace(bundle, normal_imp=bundle.normal_imp[:, :47].contiguous()))
+    refused(bundle, "cars per env", n=3)
+    refused(bundle, cars=post.replace(hull_a=post.hull_a.double()))
+    with pytest.raises(ValueError, match="two or more cars"):
+        fin, ls_in = fused_world.pack_solve_inputs(post, force, motor)
+        fused_world.launch_solve(fin[:, ::2].contiguous(), ls_in[:, ::2].contiguous(), bundle, 1)
