@@ -24,7 +24,9 @@ after every step of ``bench.py``'s pixel workload (E = 4096, N = 2), and the
 env side of a pixel-PPO rollout (E = 1024, N = 2, a frame per decision of 4
 steps, autoreset between chunks), where every frame is one launch of
 ``csrc/paint_view.cu`` (K6: the 96x96 painter, one block per view, each view
-branching on its own warm-up flag).
+branching on its own warm-up flag; each warp bins 16x16 patches of its view
+by a conservative edge-function reject, then paints 8x8 cells testing only
+their candidates).
 
 K3 (``csrc/solve_island.cu``, the island solve alone from a ContactBundle
 made outside) is on none of those paths: its path is
@@ -89,19 +91,27 @@ on_grass, count and nearest_beta equal, bonus within 2e-5.
      observations and of resets per chunk
  16. K6 vs plain, every byte equal, and two launches bit-identical: at N = 2,
      E = 4096, the spawn tick (every view warm), a state driven 60 steps
-     (steady), a mixed batch after reset_done_envs refreshed a third of the
-     envs, and that state with driving_backward set in a third of the views
-     (the flag); at N = 1 with CW direction (E = 1024) and at N = 4 with
-     use_ego_color (E = 512), on the spawn tick and after 60 steps; then the
-     five 96x96 golden frames (tests/fixtures/golden, loaded through
-     convert.env_state_from_leaves), byte for byte
+     (steady), that state at t = 0.25, 0.5 and 0.75 s (a third of the envs
+     each: warm, mid zoom), that state with every camera jittered by
+     sub-pixel amounts from a numpy seed (edges near pixel centres and cell
+     corners), a mixed batch after
+     reset_done_envs refreshed a third of the envs, and that state with
+     driving_backward set in a third of the views (the flag); at N = 1 with
+     CW direction (E = 1024) and at N = 4 with use_ego_color (E = 512), on
+     the spawn tick and after 60 steps; then the five 96x96 golden frames
+     (tests/fixtures/golden, loaded through convert.env_state_from_leaves),
+     byte for byte
  17. pixel main path: bench.py's pixel workload (random direction per
      track) -- reset + 10 warm-up + 100 timed steps at E = 4096, N = 2 with
      a frame after the reset and after every step; K6's count equals the
      111 frames and the plain painter ran 0 times on the card; env-steps/s
      with frames, K6's ms per launch (CUDA events over 50 launches) on the
-     last state (steady) and on the spawn tick, its bounds (paint_work) and
-     the plain painter's ms, the view_inputs ms, and a stage table
+     last state (steady), on that state at t = 0.5 s (mid zoom) and on the
+     spawn tick, its bounds (paint_work), the mean road and car candidates
+     per 8x8 cell at mid zoom (the plain cull predicate,
+     pixels.paint_candidates), its ptxas registers and spills, the plain
+     painter's ms, the
+     view_inputs ms, and a stage table
  18. pixel-PPO env side at E = 1024, N = 2 (learner/ppo.py's pixel shape):
      a pool of 32 host tracks, chunks of 32 decisions with action repeat 4
      (128 steps, a frame per decision), reset_done_envs between chunks, 9
@@ -179,6 +189,11 @@ POOL_SEEDS = tuple(range(100, 132))
 # pallas_call :638 from render_pixels :587.
 PAINT_TPU_KERNEL = "multi_car_racing_tpu/render/pallas_raster.py:353"
 PIXEL_DRIVE = 60                # steps to a steady (post zoom-out) state
+MID_ZOOM_TS = (0.25, 0.5, 0.75)  # a warm batch at mid zoom (the view zooms out over 1 s)
+MID_ZOOM_T = 0.5                # phase 17 times K6 on the last state at this t
+JITTER_SEED = 11
+JITTER_SHIFT, JITTER_TURN = 0.3, 0.01   # world units, rad: about half a pixel each
+CAND_CHUNK = 256                # envs per pass of the plain cull predicate
 PIXEL_E1, PIXEL_E4 = 1024, 512  # envs of the N = 1 CW and N = 4 ego-colour checks
 GOLDEN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "fixtures",
                           "golden")
@@ -723,6 +738,41 @@ def drive(cfg, state, actions, steps: int):
     return state
 
 
+def jitter(state, seed: int):
+    """The cameras moved by sub-pixel amounts at the steady zoom, from a
+    numpy seed, so that edges fall near pixel centres and cell corners: each
+    car shifted by up to JITTER_SHIFT world units (half a pixel at the steady
+    zoom), its heading and its velocity turned by up to JITTER_TURN rad (half
+    a pixel at the window's edge; the view follows the velocity above
+    0.5 m/s)."""
+    rng = np.random.RandomState(seed)
+    cars = state.cars
+    dev = cars.hull_c.device
+    shift = torch.as_tensor(rng.uniform(-JITTER_SHIFT, JITTER_SHIFT, cars.hull_c.shape),
+                            dtype=torch.float32, device=dev)
+    turn = torch.as_tensor(rng.uniform(-JITTER_TURN, JITTER_TURN, cars.hull_a.shape),
+                           dtype=torch.float32, device=dev)
+    c, s = torch.cos(turn), torch.sin(turn)
+    vx, vy = cars.hull_v[..., 0], cars.hull_v[..., 1]
+    return state.replace(cars=cars.replace(
+        hull_c=cars.hull_c + shift, hull_a=cars.hull_a + turn,
+        hull_v=torch.stack([c * vx - s * vy, s * vx + c * vy], dim=-1),
+        wheel_c=cars.wheel_c + shift[:, :, None]))
+
+
+def mean_candidates(args) -> tuple[float, float]:
+    """Mean road and car candidates per 8x8 cell of K6 on these painter
+    arguments, from the plain cull predicate (pixels.paint_candidates), in
+    chunks of CAND_CHUNK envs."""
+    road = cars = 0.0
+    views = args[0].shape[0] * args[0].shape[1]
+    for e0 in range(0, args[0].shape[0], CAND_CHUNK):
+        r, c, _ = pixels.paint_candidates(*(x[e0:e0 + CAND_CHUNK] for x in args))
+        road += float(r.sum())
+        cars += float(c.sum())
+    return road / (views * pixels.CELLS), cars / (views * pixels.CELLS)
+
+
 def pixel_checks(dev: torch.device, pool) -> dict:
     """Phase 12: K6 against the plain painter on every kind of input the
     pixel paths give it, then on the golden frames."""
@@ -738,6 +788,16 @@ def pixel_checks(dev: torch.device, pool) -> dict:
                                                          f"steps")
     if r["warm_views"]:
         raise AssertionError(f"warm views after {PIXEL_DRIVE} steps")
+    mid_t = torch.as_tensor(MID_ZOOM_TS, device=dev)[torch.arange(E, device=dev) % 3]
+    res["N=2 mid zoom"] = r = compare_pixels(
+        cfg2, steady.replace(t=mid_t), f"N=2, E={E}, mid zoom (a third each at t = "
+        f"{', '.join(map(str, MID_ZOOM_TS))} s, on the driven poses)")
+    if r["warm_views"] != r["views"]:
+        raise AssertionError("the mid-zoom views are not all warm")
+    jittered = jitter(steady, JITTER_SEED)
+    res["N=2 jitter"] = compare_pixels(
+        cfg2, jittered, f"N=2, E={E}, cameras jittered (seed {JITTER_SEED}: cars shifted up to "
+        f"{JITTER_SHIFT} world units, turned up to {JITTER_TURN} rad)")
     done = torch.arange(E, device=dev) % 3 == 0
     mixed = penv.reset_done_envs(cfg2, steady.replace(done=done), pool,
                                  torch.Generator(device=dev).manual_seed(1))
@@ -829,28 +889,42 @@ def pixel_main_path(smi: str, dev: torch.device) -> dict:
           f"{E * T / elapsed:.1f} env-steps/s on {smi}; K6 launches {launches}, plain painter "
           f"calls on the card {plain_calls}; road grey on {road_share:.3f} of the last frames")
 
+    mid = state.replace(t=torch.full_like(state.t, MID_ZOOM_T))
     steady_args = pixels.paint_inputs(cfg, state)
     spawn_args = pixels.paint_inputs(cfg, spawn)
+    mid_args = pixels.paint_inputs(cfg, mid)
     ms = cuda_ms(lambda: pixels.paint_views(*steady_args), KERNEL_TIMING_LAUNCHES)
     spawn_ms = cuda_ms(lambda: pixels.paint_views(*spawn_args), KERNEL_TIMING_LAUNCHES)
+    mid_ms = cuda_ms(lambda: pixels.paint_views(*mid_args), KERNEL_TIMING_LAUNCHES)
     plain_ms = cuda_ms(lambda: pixels.paint_views_plain(*steady_args), 1)
     out = {"launches": launches, "plain_calls": plain_calls, "step_ms": step_ms,
            "env_steps_per_s": E * T / elapsed, "ms": ms, "spawn_ms": spawn_ms,
-           "plain_ms": plain_ms}
-    for key, st, kms in (("", state, ms), ("spawn_", spawn, spawn_ms)):
+           "mid_zoom_ms": mid_ms, "mid_zoom_t": MID_ZOOM_T, "plain_ms": plain_ms}
+    for key, st, kms, label in (("", state, ms, "steady"),
+                                ("spawn_", spawn, spawn_ms, "spawn tick"),
+                                ("mid_zoom_", mid, mid_ms, f"mid zoom (t = {MID_ZOOM_T} s)")):
         nbytes, flops = pixels.paint_work(cfg, st)
         byte_ms, flop_ms = 1e3 * nbytes / PEAK_BYTES_PER_S, 1e3 * flops / PEAK_FP32_FLOPS
         out.update({f"{key}bound_ms": max(byte_ms, flop_ms),
                     f"{key}bound_by": "operations" if flop_ms >= byte_ms else "bytes",
                     f"{key}bytes": nbytes, f"{key}flops": flops})
-        phase(f"K6 {'spawn tick' if key else 'steady'}: {kms:.5f} ms/launch (CUDA events, "
+        phase(f"K6 {label}: {kms:.5f} ms/launch (CUDA events, "
               f"{KERNEL_TIMING_LAUNCHES} launches); bound {max(byte_ms, flop_ms):.5f} ms "
               f"({nbytes} bytes = {byte_ms:.5f} ms, {flops} fp32 ops = {flop_ms:.5f} ms)")
+    out["road_candidates_per_cell"], out["car_candidates_per_cell"] = mean_candidates(mid_args)
+    out["ptxas"] = _cuda.build_info[pixels.KERNEL]["ptxas"]
+    painted = float((mid_args[10].sum(-1) + mid_args[11].sum(-1)).float().mean())
+    phase(f"K6 at mid zoom (t = {MID_ZOOM_T} s): {out['road_candidates_per_cell']:.4f} road and "
+          f"{out['car_candidates_per_cell']:.4f} car candidates per 8x8 cell (the plain cull "
+          f"predicate), of {painted:.1f} painted world quads and {8 * 2 + 4 * 2} car slots per "
+          f"view; ptxas: " + " | ".join(out["ptxas"][1:]))
     a0 = actions[0]
     stages = {
         "env.step": cuda_ms(lambda: penv.step(cfg, state, a0), 10),
         "view_inputs": cuda_ms(lambda: pixels.view_inputs(cfg, state), 20),
-        "K6 (paint_views)": ms,
+        "K6 (paint_views), steady": ms,
+        f"K6, mid zoom t = {MID_ZOOM_T} s": mid_ms,
+        "K6, spawn tick": spawn_ms,
         "pixel_observation_batched": cuda_ms(
             lambda: pobs.pixel_observation_batched(cfg, state), 20),
     }
@@ -1141,14 +1215,18 @@ def main() -> int:
           f"tracks, chunks of {ROLLOUT_CHUNK} steps, past the time limit")
     rollout = rollout_phase(smi, dev)
 
-    phase("16/19 K6 vs plain: N=2 spawn tick, steady, mixed and backward at E=4096; N=1 CW; "
-          "N=4 ego colour; the golden frames")
+    phase("16/19 K6 vs plain: N=2 spawn tick, steady, mid zoom, camera jitter, mixed and "
+          "backward at E=4096; N=1 CW; N=4 ego colour; the golden frames")
     pool = penv.make_track_pool(EnvConfig(num_agents=2), POOL_SEEDS, device=dev)
+    t16 = time.perf_counter()
     px_checks = pixel_checks(dev, pool)
+    phase(f"phase 16 took {time.perf_counter() - t16:.1f} s")
 
     phase(f"17/19 pixel main path: reset_batch E={E}, N=2 + {WARMUP} warm-up + {T} steps, a "
           f"frame after the reset and after every step")
+    t17 = time.perf_counter()
     px_run = pixel_main_path(smi, dev)
+    phase(f"phase 17 took {time.perf_counter() - t17:.1f} s")
 
     phase(f"18/19 pixel-PPO env side: E={PPO_E}, N=2, {PPO_CHUNKS} chunks of {PPO_DECISIONS} "
           f"decisions x {PPO_REPEAT} steps, autoreset, past the time limit")
@@ -1161,6 +1239,12 @@ def main() -> int:
                 differing_bytes=sum(r["differing_bytes"] for r in px_checks["checks"].values()),
                 main_path=f"E={E}, N=2, a frame per step", spawn_ms=px_run["spawn_ms"],
                 spawn_bound_ms=px_run["spawn_bound_ms"], spawn_bound_by=px_run["spawn_bound_by"],
+                mid_zoom_ms=px_run["mid_zoom_ms"], mid_zoom_t=px_run["mid_zoom_t"],
+                mid_zoom_bound_ms=px_run["mid_zoom_bound_ms"],
+                mid_zoom_bound_by=px_run["mid_zoom_bound_by"],
+                mid_zoom_road_candidates_per_cell=px_run["road_candidates_per_cell"],
+                mid_zoom_car_candidates_per_cell=px_run["car_candidates_per_cell"],
+                ptxas=px_run["ptxas"],
                 view_inputs_ms=px_run["view_inputs_ms"], launches_pixel_ppo=px_rollout[
                     "k6_launches"],
                 checks={k: {"views": r["views"], "warm_views": r["warm_views"],

@@ -13,11 +13,13 @@ kernel K6 and its XLA precompute). Two stages:
   matrix products (for the TPU's matrix unit), this one gathers by index:
   no matrix product, so no TF32 rounding, touches a coordinate.
 - ``paint_views``: the painter. On CUDA tensors it launches the hand-written
-  kernel ``csrc/paint_view.cu`` (one block per view) and counts
-  ``paint_views.launches``; on CPU tensors it runs ``paint_views_plain``,
-  the same function in PyTorch ops, which counts its calls on CUDA tensors
-  in ``paint_views_plain.cuda_calls``. There is no fallback from one to the
-  other.
+  kernel ``csrc/paint_view.cu`` (one block per view: its warps bin 16x16
+  patches, then paint 8x8 cells testing only the cells' candidate slots)
+  and counts ``paint_views.launches``; on CPU tensors it runs
+  ``paint_views_plain``, the same function in PyTorch ops, which counts its
+  calls on CUDA tensors in ``paint_views_plain.cuda_calls``. There is no
+  fallback from one to the other. ``paint_candidates`` is the kernel's
+  per-cell reject in PyTorch ops, for the tests.
 
 Paint order (mcr:309-334, 559-674): background (grass and checker in world
 space, white outside the playfield); road tiles with their curbs -- the
@@ -27,10 +29,11 @@ per car its 4 wheels each followed by its marker, then its 4 hull polygons;
 the 8 HUD rects; the 4 score glyphs; the backwards-flag triangle last.
 
 Not ported: the TPU's banding (32-row / 16-row bands, which bound VMEM work;
-a slot here is tested on every row from its band start down), the 128-lane
-padding, the views-per-program blocking and the warm partition with its cap
-and ``lax.cond`` fallback: each view branches on its own warm flag inside
-the one launch. The ``MCR_RASTER_*`` tuning switches are TPU knobs.
+the kernel culls per patch and cell instead, and a slot's band start only
+bounds its rows), the 128-lane padding, the views-per-program blocking and
+the warm partition with its cap and ``lax.cond`` fallback: each view
+branches on its own warm flag inside the one launch. The ``MCR_RASTER_*``
+tuning switches are TPU knobs.
 """
 
 from __future__ import annotations
@@ -428,6 +431,156 @@ def paint_views_plain(cam, quads, q4, p8, rects, score, quad, curb_quad, tile_to
 
 
 paint_views_plain.cuda_calls = 0
+
+
+# ---------------------------------------------------------------------------
+# The kernel's per-patch cull, in plain PyTorch (tests only)
+# ---------------------------------------------------------------------------
+
+PATCH = 16                               # K6 bins 16 x 16 patches ...
+CELL = PATCH // 2                        # ... and paints their 8 x 8 quadrants
+PATCHES = (H // PATCH) * (W // PATCH)
+CELLS = 4 * PATCHES
+CULL_REL = f32(2.0 ** -16)               # K6's margin per unit of term magnitude
+
+
+def cell_origins(device=None):
+    """(first rows, first columns) of K6's patches (36, patch p at row
+    16 (p // 6), column 16 (p % 6)) and of its cells (144: cell 4p + i is
+    quadrant i of patch p, row-major), each a pair of int64 tensors."""
+    p = torch.arange(PATCHES, device=device)
+    pr, pc = (p // (W // PATCH)) * PATCH, (p % (W // PATCH)) * PATCH
+    i = torch.arange(4, device=device)
+    cr = (pr[:, None] + (i // 2) * CELL).reshape(-1)
+    cc = (pc[:, None] + (i % 2) * CELL).reshape(-1)
+    return (pr, pc), (cr, cc)
+
+
+def _mid(lo, hi):
+    return (lo + hi) * 0.5
+
+
+def _half(lo, hi):
+    return (hi - lo) * 0.5
+
+
+def _square_boxes(cam, r0, c0, size):
+    """Per view and square (first rows r0, columns c0, side ``size``) the
+    boxes K6 tests it by, each (centre x, centre y, half-extent x,
+    half-extent y, margin scale) of (V, P) tensors: the window box of its
+    extreme pixel centres (computed as the painter computes a pixel centre)
+    with max(|wx|, |wy|); the world box of its four corners' (gx, gy) with
+    max(|gx|, |gy|) + max (|dx| + |dy|) / zoom over the corners. And the
+    squares' last rows (P,)."""
+    V = cam.shape[0]
+    last = size - 1
+    sx, sy = f32(C.WINDOW_W / W), f32(C.WINDOW_H / H)
+    wx0, wx3, wy0, wy3 = (x.to(torch.float32)[None].expand(V, -1) for x in (
+        (c0 + 0.5) * sx, (c0 + last + 0.5) * sx, (H - 0.5 - r0) * sy, (H - 0.5 - (r0 + last)) * sy))
+    sw = torch.maximum(torch.maximum(wx0.abs(), wx3.abs()), torch.maximum(wy0.abs(), wy3.abs()))
+    window = (_mid(wx0, wx3), _mid(wy3, wy0), _half(wx0, wx3), _half(wy3, wy0), sw)
+    wx = torch.stack([wx0, wx3, wx0, wx3], dim=-1)
+    wy = torch.stack([wy0, wy0, wy3, wy3], dim=-1)
+    ca, sa, tx, ty, inv = (cam[:, i, None, None] for i in range(5))
+    dx, dy = wx - tx, wy - ty
+    gx = (ca * dx + sa * dy) * inv
+    gy = (-sa * dx + ca * dy) * inv
+    s = (torch.maximum(gx.abs(), gy.abs()).amax(-1) + ((dx.abs() + dy.abs()) * inv).amax(-1))
+    xlo, xhi, ylo, yhi = gx.amin(-1), gx.amax(-1), gy.amin(-1), gy.amax(-1)
+    world = (_mid(xlo, xhi), _mid(ylo, yhi), _half(xlo, xhi), _half(ylo, yhi), s)
+    return window, world, (r0 + last).to(torch.float32)
+
+
+def _edge_sides(coef, box):
+    """Edges [c1, c2, k0] (V, 1, S, NE, 3) over the boxes (each (V, P)) ->
+    (the edge's bound below -m over the box, its bound above +m), each
+    (V, P, S, NE): f(centre) + (|c1| hx + |c2| hy) < -m, or
+    f(centre) - (|c1| hx + |c2| hy) > m, m = CULL_REL ((|c1| + |c2|) s + |k0|)."""
+    cx, cy, hx, hy, scale = (x[:, :, None, None] for x in box)
+    a1, a2 = coef[..., 0].abs(), coef[..., 1].abs()
+    m = ((a1 + a2) * scale + coef[..., 2].abs()) * CULL_REL
+    v = (coef[..., 1] * cy - coef[..., 0] * cx) + coef[..., 2]
+    e = a1 * hx + a2 * hy
+    return (v + e) < -m, (v - e) > m
+
+
+def _slot_candidates(slots, nedges, box, last_row):
+    """Sign-folded slot rows (V, S, 3 nedges + 4) -> (V, P, S) bool: the
+    slot is active, the square's last row is at or below its band start,
+    and no edge's bound lies below -m over the window box."""
+    e3 = 3 * nedges
+    coef = slots[:, None, :, :e3].reshape(slots.shape[0], 1, slots.shape[1], nedges, 3)
+    below, _ = _edge_sides(coef, box)
+    live = (slots[:, None, :, e3 + 1] > 0) & (last_row[None, :, None] >= slots[:, None, :, e3 + 2])
+    return live & ~below.any(-1)
+
+
+def _square_candidates(cam, quads, q4, p8, quad, curb_quad, valid, has_curb, n, r0, c0, size):
+    """(road, cars, flag) candidates of the squares at (r0, c0) of side
+    ``size`` alone, in ``paint_candidates``' layout."""
+    V = cam.shape[0]
+    window, world, last_row = _square_boxes(cam, r0, c0, size)
+    P = r0.shape[0]
+    warm = cam[:, 5] > 0.0
+    mt = quad.shape[1]
+
+    # Road, steady: the first nq compacted slots.
+    steady = _slot_candidates(quads, 4, window, last_row)
+    steady = steady & (torch.arange(SQ, device=cam.device) < cam[:, 6, None])[:, None]
+    steady = steady & ~warm[:, None, None]
+
+    # Road, warm: the env's whole track, tile t then its curb.
+    env = torch.arange(V, device=cam.device) // n
+    both = torch.stack([quad[env], curb_quad[env]], dim=2).reshape(V, 2 * mt, 4, 2)
+    b = torch.roll(both, -1, dims=-2)
+    c1 = b[..., 1] - both[..., 1]
+    c2 = b[..., 0] - both[..., 0]
+    k0 = c1 * both[..., 0] - c2 * both[..., 1]
+    coef = torch.stack([c1, c2, k0], dim=-1)[:, None]               # (V, 1, 2MT, 4, 3)
+    below, above = _edge_sides(coef, world)
+    painted = torch.stack([valid[env], has_curb[env]], dim=2).reshape(V, 1, 2 * mt)
+    warm_c = painted & ~(below.any(-1) & above.any(-1)) & warm[:, None, None]
+
+    road = torch.zeros((V, P, max(SQ, 2 * mt)), dtype=torch.bool, device=cam.device)
+    road[..., :SQ] |= steady
+    road[..., :2 * mt] |= warm_c
+
+    # Cars in paint order, then the flag.
+    c4 = _slot_candidates(q4, 4, window, last_row)
+    s8 = p8.shape[1]
+    c8 = _slot_candidates(p8, 8, window, last_row)
+    cars = torch.cat([c4.reshape(V, P, n, 8), c8[..., :4 * n].reshape(V, P, n, 4)],
+                     dim=-1).reshape(V, P, 12 * n)
+    flag = c8[..., 4 * n] if s8 > 4 * n else torch.zeros_like(c8[..., 0])
+    return road, cars, flag
+
+
+def paint_candidates(cam, quads, q4, p8, rects, score, quad, curb_quad, tile_touched,
+                     curb_red, valid, has_curb):
+    """K6's per-cell candidates, in plain PyTorch: ``paint_views``'
+    arguments -> (road (V, 144, max(SQ, 2 MT)), cars (V, 144, 12 N),
+    flag (V, 144)) bool, V = E N views, in ``cell_origins``' cell order.
+
+    road: a steady view's bit j is its compacted quad slot j (j < the active
+    count); a warm view's bit 2t is tile t and 2t + 1 its curb, in world
+    space. cars: car c's 4 (wheel, marker) quads at bits 12c .. 12c + 7 and
+    its 4 hull polygons at 12c + 8 .. 12c + 11. flag: the backwards-flag
+    triangle (False without one). A bit of a cell is set where it is set
+    for the cell's 16 x 16 patch and for the 8 x 8 cell itself, each square
+    testing: a sign-folded slot is out when one edge is below -m at all four
+    corner pixel centres (or the slot is inactive, or the square lies above
+    its band start); a world quad of either winding when one edge is below
+    -m and one above +m at all four corners (or the quad is not painted).
+    The arithmetic is the kernel's, one rounding per operation; the tests
+    hold it against the plain painter's coverage."""
+    E, n = cam.shape[:2]
+    V = E * n
+    flat = [x.reshape((V,) + x.shape[2:]) for x in (cam, quads, q4, p8)]
+    tables = (*flat, quad, curb_quad, valid, has_curb, n)
+    (pr, pc), (cr, cc) = cell_origins(cam.device)
+    patch = _square_candidates(*tables, pr, pc, PATCH)
+    cell = _square_candidates(*tables, cr, cc, CELL)
+    return tuple(c & p.repeat_interleave(4, dim=1) for c, p in zip(cell, patch))
 
 
 # ---------------------------------------------------------------------------

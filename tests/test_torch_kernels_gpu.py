@@ -17,6 +17,7 @@ from multi_car_racing_tpu_torch import EnvConfig, env as penv
 from multi_car_racing_tpu_torch.physics import collide, fused_world, tire, track_engine, world
 from multi_car_racing_tpu_torch.physics.state import apply_controls
 from multi_car_racing_tpu_torch.render import pixels
+from test_torch_paint_cull import jitter
 
 TOL = 5e-4
 STEP_FLOOR = 1e-3     # floor of the per-step-change scale
@@ -212,8 +213,11 @@ def test_track_wrapper_rejects_bad_inputs_on_card():
 def test_paint_kernel_matches_plain_on_card(num_envs, num_cars):
     """paint_view (K6) against paint_views_plain on the same card tensors,
     every byte equal, on a batch driven 12 steps (every view warm: the whole
-    track in world space), the same batch 2 s later (steady: the windowed
-    slots) and mixed (every other env steady); two launches bit-identical."""
+    track in world space), the same batch at t = 0.25, 0.5 and 0.75 s (warm,
+    mid zoom), 2 s later (steady: the windowed slots), 2 s later with every
+    camera jittered by sub-pixel amounts (edges near pixel centres and the
+    corners of K6's cells) and mixed (every other env steady); two launches
+    bit-identical."""
     _need_card()
     cfg = EnvConfig(num_agents=num_cars)
     state = penv.reset_batch(cfg, range(8), num_envs, device="cuda")
@@ -223,12 +227,16 @@ def test_paint_kernel_matches_plain_on_card(num_envs, num_cars):
     for _ in range(12):
         state, _, _ = penv.step(cfg, state, act)
     odd = torch.arange(num_envs, device="cuda") % 2 == 1
-    for label, t, warm_views in (
-            ("warm", state.t, num_envs * num_cars),
-            ("steady", state.t + 2.0, 0),
-            ("mixed", torch.where(odd, state.t + 2.0, state.t),
-             (num_envs - num_envs // 2) * num_cars)):
-        args = pixels.paint_inputs(cfg, state.replace(t=t))
+    views = num_envs * num_cars
+    cases = [("warm", state, views)]
+    cases += [(f"t={t}", state.replace(t=torch.full_like(state.t, t)), views)
+              for t in (0.25, 0.5, 0.75)]
+    steady = state.replace(t=state.t + 2.0)
+    cases += [("steady", steady, 0), ("jitter", jitter(steady, 11), 0),
+              ("mixed", state.replace(t=torch.where(odd, state.t + 2.0, state.t)),
+               (num_envs - num_envs // 2) * num_cars)]
+    for label, st, warm_views in cases:
+        args = pixels.paint_inputs(cfg, st)
         assert int((args[0][..., 5] > 0).sum()) == warm_views, label
         before = pixels.paint_views.launches
         k = pixels.paint_views(*args)
