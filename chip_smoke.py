@@ -12,7 +12,9 @@ host-generated tracks tiled to E = 4096 envs, spawn tick included), then
   runs in the hand-written CUDA kernel ``csrc/joints_island.cu`` (K1);
 - at MultiCarRacing-v0 with two cars per env, where it runs in
   ``csrc/contact_island.cu`` (K2: K1's chain plus the car-car Collide pass
-  and contact solve, one warp per env branching on its broadphase flag);
+  and contact solve, two launches per call: a far pass, one thread per car,
+  that runs far envs as K1 does and lists the near envs on the card, then a
+  near pass, one warp per listed env, whose solve walks the live rows only);
 
 and in both, every step's and every spawn tick's track stage runs in
 ``csrc/track_pass.cu`` (K4/K5: wheel-tile SAT, visit rewards, nearest tile,
@@ -45,7 +47,8 @@ on coordinates of hundreds of metres), limit states equal. The track bars
 (tests/test_track_engine.py's): wheel_on_road, visited, tile_touched,
 on_grass, count and nearest_beta equal, bonus within 2e-5.
   1. device: the card's name and power limit; no CUDA device -> exit 2
-  2. build: the five kernels' build times and ptxas register/spill lines
+  2. build: the five kernels' build times and ptxas register/spill lines;
+     K2's (near and far pass) and K3's registers and spills
   3. K1 vs plain: one island step through K1 and through its plain PyTorch
      version on the same card tensors at N = 1, E = 4096, after 20 driven
      steps; both bars; skid flags differing bounded
@@ -58,10 +61,19 @@ on_grass, count and nearest_beta equal, bonus within 2e-5.
      the track kernel's times and bounds, stage times by CUDA events
   6. K2 vs plain at N = 2, E = 4096, on a state driven until a share of envs
      is broadphase-near: CarState fields and impulses within both bars,
-     manifold ids differing bounded; fails if no env has a live contact
+     manifold ids differing bounded; fails if no env has a live contact.
+     Live rows per near env (fused_world.live_routing). The far pass: every
+     far env's cars byte-equal to the same cars through K1, its carry zero,
+     and K2's near count equal to near_flags' sum -- on that input, on an
+     all-far one (car 1 of every env moved 500 m) and on an all-near one (a
+     spawn tick with car 1 pulled to 2.7 m of car 0); K2 vs plain on both
   7. a rear-end ram at N = 4 driven by the port: K2 vs plain at the first
-     step whose normal impulse exceeds 0.1; both bars, ids equal
-  8. determinism: two K2 launches on phase 6's input are bit-identical
+     step whose normal impulse exceeds 0.1; both bars, ids equal. Then N = 4,
+     E = 1024 driven until 10% of envs are near: K2 vs plain, the far pass,
+     and K3's ms beside K2's with the solve's share; and four overlapping
+     cars per env (more than 32 live rows): K2 vs plain, both bars
+  8. determinism: two K2 launches on phase 6's input and on the all-near
+     input (the near list filled in no fixed order) are bit-identical
   9. K3 vs plain at N = 2, E = 4096, full 180/60, on phase 6's input: the
      plain tire model, Collide pass and make_bundle, then world_step_batched
      on the card against world.world_step on the same card tensors; every
@@ -77,7 +89,8 @@ on_grass, count and nearest_beta equal, bonus within 2e-5.
      (solve_island_flops / solve_island_bytes), the plain solve's ms and the
      plain tire + Collide + make_bundle ms
  13. N = 2 main path: as phase 5 with K2 (K1's and K3's counts 0); then
-     phase 12's times on the main path's last input
+     phase 12's times on the main path's last input, and K2's ms beside its
+     bound on the all-far and all-near inputs
  14. K4/K5 vs plain at N = 1 and N = 2, E = 4096: on a state driven until
      tiles are newly visited (at N = 2, until a car earns a second-visitor
      share) and on a spawn tick; the track bars; two launches bit-identical
@@ -143,7 +156,7 @@ from multi_car_racing_tpu_torch.render import pixels  # noqa: E402
 from multi_car_racing_tpu_torch.physics import collide, fused_world, tire  # noqa: E402
 from multi_car_racing_tpu_torch.physics import track_engine, world  # noqa: E402
 from multi_car_racing_tpu_torch.physics.collide import ContactState  # noqa: E402
-from multi_car_racing_tpu_torch.physics.state import apply_controls  # noqa: E402
+from multi_car_racing_tpu_torch.physics.state import apply_controls, create_cars  # noqa: E402
 from multi_car_racing_tpu_torch.util import tree_leaves, tree_map  # noqa: E402
 
 E = 4096
@@ -170,6 +183,12 @@ TPU_KERNEL = "multi_car_racing_tpu/physics/pallas_world.py:975"
 SOLVE_TPU_KERNEL = "multi_car_racing_tpu/physics/pallas_world.py:865"
 NEAR_SHARE = 0.10              # drive phase 6 until this share of envs is near
 NEAR_MAX_STEPS = 120
+ALL_FAR_SHIFT = 500.0          # the all-far input: car 1 of every env moved this far in x
+ALL_NEAR_PULL = 0.55           # the all-near input: the spawn tick's car 1 moved toward car 0
+#                                by this share of their 6 m (2.7 m apart: every env near)
+N4_E = 1024                    # phase 7's N = 4 near state
+PILE_ENVS, PILE_SEED = 8, 5    # four overlapping cars per env, > 32 live rows
+PILE_STEP, PILE_TURN = 0.3, 0.15   # car c moved 0.3 m at c * 90 degrees, turned c * 0.15 rad
 RAM_STEPS = (100, 160)         # phase 7 looks for the contact in this window
 # K4/K5 replaces both TPU track-pass kernels: v1 (pallas_call :252 through
 # track_pass_batched :190) and v2 (_make_kernel_v2 :304, pallas_call :498
@@ -381,30 +400,36 @@ def kernel_times(cfg, run: dict, actions) -> dict:
     p_out = fused_world.island_step_plain(pre, lagged, state.contacts)[0]
     torch.cuda.synchronize()
     plain_ms = 1e3 * (time.perf_counter() - t0)
-    n_cars = E * n
-    n_limit = int((p_out.limit_state != 0).sum())
-    if n == 1:
-        flops = fused_world.island_flops(n_cars, n_limit)
-        nbytes = fused_world.island_bytes(n_cars)
-        work = f"{n_limit} joints at a limit"
-    else:
-        counts = fused_world.contact_island_work(pre)
-        flops = fused_world.contact_island_flops(n_cars, n_limit, n, **counts)
-        nbytes = fused_world.contact_island_bytes(n_cars, n)
-        work = f"{n_limit} joints at a limit, " + ", ".join(
-            f"{k[2:].replace('_', ' ')} {v}" for k, v in counts.items())
-    flop_ms = 1e3 * flops / PEAK_FP32_FLOPS
-    byte_ms = 1e3 * nbytes / PEAK_BYTES_PER_S
-    bound_ms = max(flop_ms, byte_ms)
+    b = island_bound(pre, n, int((p_out.limit_state != 0).sum()))
     phase(f"island kernel {kernel_ms:.5f} ms/launch ({kernel_ms / step_ms:.1%} of a step), "
-          f"plain {plain_ms:.3f} ms; bound {bound_ms:.5f} ms ({flops} fp32 ops, "
-          f"{nbytes} bytes, {work})")
+          f"plain {plain_ms:.3f} ms; bound {b['bound_ms']:.5f} ms ({b['flops']} fp32 ops, "
+          f"{b['bytes']} bytes, {b['work']})")
     stages = stage_times(cfg, state, action)
     phase("step stages (ms, CUDA events, 20 reps each): "
           + ", ".join(f"{k} {v:.4f}" for k, v in stages.items())
           + f"; sum {sum(stages.values()):.4f} of {step_ms:.4f} ms/step")
-    return {"ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": "operations" if flop_ms >= byte_ms else "bytes"}
+    return {"ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": b["bound_ms"],
+            "bound_by": b["bound_by"]}
+
+
+def island_bound(pre, n: int, n_limit: int) -> dict:
+    """The island kernel's (K1's or K2's) bound on pre-solve cars ``pre``
+    from the work this input needs, ``n_limit`` joints at a limit."""
+    n_cars = pre.hull_a.numel()
+    if n == 1:
+        flops = fused_world.island_flops(n_cars, n_limit)
+        nbytes = fused_world.island_bytes(n_cars)
+        counts = {}
+    else:
+        counts = fused_world.contact_island_work(pre)
+        flops = fused_world.contact_island_flops(n_cars, n_limit, n, **counts)
+        nbytes = fused_world.contact_island_bytes(n_cars, n)
+    flop_ms = 1e3 * flops / PEAK_FP32_FLOPS
+    byte_ms = 1e3 * nbytes / PEAK_BYTES_PER_S
+    return {"flops": flops, "bytes": nbytes, "bound_ms": max(flop_ms, byte_ms),
+            "bound_by": "operations" if flop_ms >= byte_ms else "bytes", "counts": counts,
+            "work": ", ".join([f"{n_limit} joints at a limit"] + [
+                f"{k[2:].replace('_', ' ')} {v}" for k, v in counts.items()])}
 
 
 def track_times(cfg, run: dict, actions) -> dict:
@@ -430,6 +455,103 @@ def track_times(cfg, run: dict, actions) -> dict:
           f"{byte_ms:.5f} ms, {flops} fp32 ops = {flop_ms:.5f} ms, {valid} valid tiles)")
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": "operations" if flop_ms >= byte_ms else "bytes"}
+
+
+def ptxas_table(name: str) -> dict:
+    """Registers and spill bytes per entry function of a kernel's build."""
+    out, cur = {}, None
+    for ln in _cuda.build_info[name]["ptxas"]:
+        if "Compiling entry function" in ln:
+            words = [w for w in ln.replace("'", " ").split() if w.startswith("_Z")]
+            cur = next((k for k in ("near_pass", "far_pass", "solve_island", "contact_island",
+                                    "joints_island", "track_pass", "paint_view")
+                        if words and k in words[0]), ln)
+            out[cur] = {}
+        elif cur is not None and "spill stores" in ln:
+            out[cur]["spill_stores"] = int(ln.split("bytes spill stores")[0].split()[-1])
+            out[cur]["spill_loads"] = int(ln.split("bytes spill loads")[0].split()[-1])
+        elif cur is not None and "registers" in ln:
+            out[cur]["registers"] = int(ln.split("Used")[1].split()[0])
+    return out
+
+
+def spawn_batch(cfg, envs: int, seed: int, dev):
+    """The state before a spawn tick at ``envs`` envs from the SEEDS tracks,
+    episodes drawn from ``seed``."""
+    pool = penv.make_track_pool(cfg, SEEDS, device=dev)
+    idx, orders, dirs = penv.draw_episodes(cfg, envs, len(SEEDS),
+                                           torch.Generator(device=dev).manual_seed(seed))
+    return penv.spawn_state(cfg, tree_map(lambda x: x.index_select(0, idx), pool), orders, dirs)
+
+
+def move_car1(cars, offset: torch.Tensor):
+    """Car 1 of every env (hull and wheels) moved by ``offset`` (E, 2)."""
+    hc, wc = cars.hull_c.clone(), cars.wheel_c.clone()
+    hc[:, 1] += offset
+    wc[:, 1] += offset[:, None]
+    return cars.replace(hull_c=hc, wheel_c=wc)
+
+
+def piled_cars(device):
+    """PILE_ENVS envs of four cars on one pose, car c moved PILE_STEP m in
+    direction c * 90 degrees and turned by c * PILE_TURN (no two faces
+    parallel; numpy seed PILE_SEED): every pair overlaps, with more than 32
+    live manifold rows per env."""
+    rng = np.random.RandomState(PILE_SEED)
+    c = np.arange(4) * (np.pi / 2)
+    pos = (np.repeat(rng.uniform(-300, 300, (PILE_ENVS, 1, 2)), 4, 1)
+           + PILE_STEP * np.stack([np.cos(c), np.sin(c)], -1)[None])
+    ang = (np.repeat(rng.uniform(-np.pi, np.pi, (PILE_ENVS, 1)), 4, 1)
+           + PILE_TURN * np.arange(4)[None])
+    cars = create_cars(torch.as_tensor(pos, dtype=torch.float32, device=device),
+                       torch.as_tensor(ang, dtype=torch.float32, device=device))
+    return (cars, torch.ones((PILE_ENVS, 4, 4), dtype=torch.bool, device=device),
+            collide.init_contact_state(PILE_ENVS, 4, device=device))
+
+
+def live_rows(cars, n: int) -> tuple[float, int]:
+    """Mean and largest number of live manifold rows per near env
+    (fused_world.live_routing on the plain Collide pass)."""
+    near = fused_world.near_flags(cars)
+    rows = fused_world.live_routing(collide.collide(cars, n).point_ok, n)[1][near]
+    return (float(rows.float().mean()) if rows.numel() else 0.0,
+            int(rows.max()) if rows.numel() else 0)
+
+
+def far_pass_check(pre, wheel_on_road, contacts, n: int, label: str) -> dict:
+    """K2's far pass on one input: every far env's cars byte-equal to the same
+    cars through K1, its carry zero impulses and ids -1, and K2's near count
+    (read on the host here, after the launch) equal to near_flags' sum."""
+    fin, ls_in = fused_world.pack_inputs(pre, wheel_on_road)
+    fout, ls_out, cs = fused_world.launch_contacts(fin, ls_in, contacts, n)
+    count = int(fused_world.launch_contacts.near_count)
+    k1_out, k1_ls = fused_world.launch(fin, ls_in, fin.shape[1])
+    near = fused_world.near_flags(pre)
+    torch.cuda.synchronize()
+    far = (~near)[:, None].expand(-1, n).reshape(-1)
+    same = torch.equal(fout[:, far], k1_out[:, far]) and torch.equal(ls_out[:, far], k1_ls[:, far])
+    carry = (not bool(cs.normal_imp[~near].any()) and not bool(cs.tangent_imp[~near].any())
+             and bool((cs.ids[~near] == -1).all()))
+    out = {"far_envs": int((~near).sum()), "near_count": count, "near_flags_sum": int(near.sum()),
+           "far_byte_equal_k1": same, "far_carry_zero": carry}
+    phase(f"{label}: far envs {out['far_envs']}, their cars byte-equal to K1: {same}, carry "
+          f"zero / ids -1: {carry}; K2's near count {count}, near_flags sum "
+          f"{out['near_flags_sum']}")
+    if not (same and carry and count == out["near_flags_sum"]):
+        raise AssertionError(f"{label}: K2's far pass {out}")
+    return out
+
+
+def k2_time_and_bound(pre, wheel_on_road, contacts, n: int) -> dict:
+    """K2's ms per launch (CUDA events) on one input and its bound from the
+    work this input needs."""
+    fin, ls_in = fused_world.pack_inputs(pre, wheel_on_road)
+    ms = cuda_ms(lambda: fused_world.launch_contacts(fin, ls_in, contacts, n),
+                 KERNEL_TIMING_LAUNCHES)
+    ls_out = fused_world.launch_contacts(fin, ls_in, contacts, n)[1]
+    b = island_bound(pre, n, int((ls_out != 0).sum()))
+    return {"ms": ms, "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
+            "near_envs": b["counts"]["n_near_envs"]}
 
 
 def ram_state(device):
@@ -575,11 +697,7 @@ def track_phase(cfg, actions) -> dict:
     if stepped is None:
         raise AssertionError(f"N={n}: no step in {TRACK_MAX_STEPS} gained a tile"
                              + ("" if n == 1 else " with a second-visitor share"))
-    dev = state.steps.device
-    pool = penv.make_track_pool(cfg, SEEDS, device=dev)
-    idx, orders, dirs = penv.draw_episodes(cfg, E, len(SEEDS),
-                                           torch.Generator(device=dev).manual_seed(n))
-    sp = penv.spawn_state(cfg, tree_map(lambda x: x.index_select(0, idx), pool), orders, dirs)
+    sp = spawn_batch(cfg, E, n, state.steps.device)
     spawn = (f"N={n}, a spawn tick", (sp.track, sp.cars, sp.cars.hull_origin, sp.visited,
                                       sp.tile_touched, n))
     # The spawn tick with every wheel lifted 1 km away: no wheel touches a
@@ -1039,6 +1157,11 @@ def main() -> int:
         info = _cuda.build_info[name]
         phase(f"built {name} in {info['seconds']:.2f} s: " + " | ".join(info["ptxas"]))
     phase(f"all kernels loaded {time.perf_counter() - t0:.2f} s after the builds started")
+    ptx = {"K2": ptxas_table(fused_world.CONTACT_KERNEL),
+           "K3": ptxas_table(fused_world.SOLVE_KERNEL)}
+    phase("registers and spills: " + "; ".join(
+        f"{k} {fn}: {v.get('registers')} registers, {v.get('spill_stores')} B spill stores, "
+        f"{v.get('spill_loads')} B spill loads" for k, t in ptx.items() for fn, v in t.items()))
 
     cfg = EnvConfig(num_agents=1, use_random_direction=False)
     actions = cycled_actions(E, cfg.num_agents, dev)
@@ -1112,6 +1235,39 @@ def main() -> int:
         raise AssertionError(f"K2 vs plain: {id_miss} envs' ids, {skid_miss} skid flags differ")
     if k_live_envs == 0:
         raise AssertionError("K2 vs plain: no env with a live contact point")
+    live_mean, live_max = live_rows(pre, 2)
+    phase(f"live rows per near env (fused_world.live_routing): mean {live_mean:.4f}, max "
+          f"{live_max}")
+    far_checks = {"phase 6": far_pass_check(pre, state.wheel_on_road, cs_pre, 2,
+                                            "far pass on phase 6's input")}
+    # The all-far input: phase 6's cars with car 1 of every env moved away.
+    far_in = (move_car1(pre, torch.tensor([ALL_FAR_SHIFT, 0.0], device=dev).expand(E, 2)),
+              state.wheel_on_road, cs_pre)
+    far_checks["all-far"] = far_pass_check(*far_in, 2, f"all-far (car 1 moved {ALL_FAR_SHIFT} m)")
+    devs_far = compare_contact_step(fused_world.island_step(*far_in),
+                                    fused_world.island_step_plain(*far_in), far_in[0], cs_pre,
+                                    "K2 vs plain (all-far)")[0]
+    # The all-near input: a spawn tick (6 m between a env's cars, none
+    # near) with car 1 pulled toward car 0.
+    sp = spawn_batch(cfg2, E, 2, dev)
+    sp_cars, sp_road, sp_cs = sp.cars, sp.wheel_on_road, sp.contacts
+    spawn_near = float(fused_world.near_flags(sp_cars).float().mean())
+    near_in = (move_car1(sp_cars, -ALL_NEAR_PULL * (sp_cars.hull_c[:, 1] - sp_cars.hull_c[:, 0])),
+               sp_road, sp_cs)
+    near_live = live_rows(near_in[0], 2)
+    phase(f"spawn tick: near share {spawn_near:.4f}; all-near (car 1 pulled by "
+          f"{ALL_NEAR_PULL} of the 6 m): live rows per near env mean {near_live[0]:.4f}, max "
+          f"{near_live[1]}")
+    far_checks["all-near"] = far_pass_check(*near_in, 2, "all-near")
+    if far_checks["all-near"]["near_count"] != E:
+        raise AssertionError("the all-near input has far envs")
+    devs_near, id_near, skid_near = compare_contact_step(
+        fused_world.island_step(*near_in), fused_world.island_step_plain(*near_in), near_in[0],
+        sp_cs, "K2 vs plain (all-near)")
+    phase(f"all-near: envs whose manifold ids differ {id_near}; skid flags differing {skid_near}")
+    if id_near > E // 1000 or skid_near > E // 1000:
+        raise AssertionError(f"K2 vs plain (all-near): {id_near} envs' ids, {skid_near} skid "
+                             f"flags differ")
 
     phase("7/19 rear-end ram (N=4, E=1): K2 vs plain at the first step with contact")
     ram_cfg, ram, ram_act, ram_t = ram_state(dev)
@@ -1129,6 +1285,39 @@ def main() -> int:
     if ram_id_miss:
         raise AssertionError("ram: K2's manifold ids differ from the plain version's")
 
+    phase(f"7/19 (cont.) N=4, E={N4_E}, driven until {NEAR_SHARE:.0%} of envs are near: K2 vs "
+          f"plain, the far pass, and K2 beside K3")
+    cfg4 = EnvConfig(num_agents=4, use_random_direction=False)
+    actions4 = cycled_actions(N4_E, 4, dev)
+    state4 = penv.reset_batch(cfg4, SEEDS, N4_E)
+    for t4 in range(NEAR_MAX_STEPS + 1):
+        pre4 = apply_controls(state4.cars, actions4[t4 % 8])
+        near4 = fused_world.near_flags(pre4)
+        if t4 == NEAR_MAX_STEPS or (t4 >= 10 and float(near4.float().mean()) >= NEAR_SHARE):
+            break
+        state4, _, _ = penv.step(cfg4, state4, actions4[t4 % 8])
+    in4 = (pre4, state4.wheel_on_road, state4.contacts)
+    live4 = live_rows(pre4, 4)
+    phase(f"N=4 after {t4} steps: near {float(near4.float().mean()):.4f} of envs "
+          f"({int(near4.sum())}); live rows per near env mean {live4[0]:.4f}, max {live4[1]}")
+    devs4, id4, skid4 = compare_contact_step(fused_world.island_step(*in4),
+                                             fused_world.island_step_plain(*in4), pre4,
+                                             in4[2], f"K2 vs plain (N=4, E={N4_E})")
+    if id4 > N4_E // 1000 + 1 or skid4 > N4_E // 1000 + 1:
+        raise AssertionError(f"K2 vs plain (N=4): {id4} envs' ids, {skid4} skid flags differ")
+    far_checks["N=4"] = far_pass_check(*in4, 4, f"far pass at N=4, E={N4_E}")
+    times4 = solve_times(*in4, 4)
+    pile = piled_cars(dev)
+    pile_live = live_rows(pile[0], 4)
+    phase(f"four overlapping cars (N=4, E={PILE_ENVS}): live rows per env mean "
+          f"{pile_live[0]:.4f}, max {pile_live[1]}")
+    if pile_live[1] <= 32:
+        raise AssertionError("the overlapping cars have no env past 32 live rows")
+    devs_pile, id_pile, _ = compare_contact_step(fused_world.island_step(*pile),
+                                                 fused_world.island_step_plain(*pile), pile[0],
+                                                 pile[2], "K2 vs plain (N=4, > 32 live rows)")
+    phase(f"> 32 live rows: envs whose manifold ids differ {id_pile}")
+
     phase("8/19 determinism: two K2 launches on phase 6's input")
     fin, ls_in = fused_world.pack_inputs(pre, state.wheel_on_road)
     a = fused_world.launch_contacts(fin, ls_in, cs_pre, cfg2.num_agents)
@@ -1136,8 +1325,15 @@ def main() -> int:
     same = all(torch.equal(x, y) for x, y in zip(
         (a[0], a[1], a[2].normal_imp, a[2].tangent_imp, a[2].ids),
         (b[0], b[1], b[2].normal_imp, b[2].tangent_imp, b[2].ids)))
-    phase(f"bit-identical: {same}")
-    if not same:
+    fin_n, ls_n = fused_world.pack_inputs(near_in[0], near_in[1])
+    a = fused_world.launch_contacts(fin_n, ls_n, near_in[2], 2)
+    b = fused_world.launch_contacts(fin_n, ls_n, near_in[2], 2)
+    same_near = all(torch.equal(x, y) for x, y in zip(
+        (a[0], a[1], a[2].normal_imp, a[2].tangent_imp, a[2].ids),
+        (b[0], b[1], b[2].normal_imp, b[2].tangent_imp, b[2].ids)))
+    phase(f"bit-identical: {same}; on the all-near input ({E} envs listed in the order the "
+          f"far pass appended them): {same_near}")
+    if not (same and same_near):
         raise AssertionError("two K2 launches on the same input differ")
 
     # K3's path: world_step_batched on the card, its count set to 0 here and
@@ -1190,7 +1386,14 @@ def main() -> int:
     times3_last = solve_times(apply_controls(last2.cars, actions2[(WARMUP + T) % 8]),
                               last2.wheel_on_road, last2.contacts, 2)
     track2 = track_times(cfg2, run2, actions2)
-    all2 = {**devs2, **{f"ram {f}": v for f, v in devs_ram.items()}}
+    extra2 = {"all-far": k2_time_and_bound(*far_in, 2), "all-near": k2_time_and_bound(*near_in, 2)}
+    phase("K2 on the all-far and all-near inputs: " + "; ".join(
+        f"{k} {v['ms']:.5f} ms/launch, bound {v['bound_ms']:.5f} ms ({v['bound_by']}), "
+        f"{v['near_envs']} near envs" for k, v in extra2.items()))
+    all2 = {**devs2, **{f"ram {f}": v for f, v in devs_ram.items()},
+            **{f"{lab} {f}": v for lab, d in (("all-far", devs_far), ("all-near", devs_near),
+                                             ("N=4", devs4), ("> 32 rows", devs_pile))
+               for f, v in d.items()}}
     k2 = report(fused_world.CONTACT_KERNEL,
                 "multi_car_racing_tpu_torch/csrc/contact_island.cu", TPU_KERNEL,
                 run2["launches"],
@@ -1198,7 +1401,18 @@ def main() -> int:
                 max(max(rv, rs) for _, rv, rs in all2.values()), times2,
                 variant="full contact", near_share=float(near.float().mean()),
                 live_envs=k_live_envs,
-                id_miss_envs=id_miss, ram_max_normal_imp=ram_imp)
+                id_miss_envs=id_miss, ram_max_normal_imp=ram_imp,
+                launches_per_call="2 (far pass, then near pass)",
+                live_rows_per_near_env={"mean": live_mean, "max": live_max},
+                far_pass_checks=far_checks,
+                **{f"{k.replace('-', '_')}_{f}": v[f] for k, v in extra2.items()
+                   for f in ("ms", "bound_ms", "bound_by", "near_envs")},
+                n4_e1024={"ms": times4["k2_ms_same_input"], "k3_ms": times4["ms"],
+                          "solve_share_of_k2": times4["solve_share_of_k2"]},
+                over_32_rows={"max_live_rows": pile_live[1], "id_miss_envs": id_pile,
+                              "max_err_over_bar": max(max(rv, rs)
+                                                      for _, rv, rs in devs_pile.values())},
+                ptxas=ptx["K2"])
 
     phase(f"14/19 K4/K5 vs plain at E={E}, N=1 and N=2: a stepped state and a spawn tick")
     checks = {**track_phase(cfg, actions), **track_phase(cfg2, actions2)}
@@ -1265,7 +1479,10 @@ def main() -> int:
                    ("ms", "bound_ms", "k2_ms_same_input", "solve_share_of_k2")},
                 k2_vs_collide_k3_max_err_over_bar=max(max(rv, rs) for _, rv, rs in
                                                       devs23.values()),
-                k2_vs_collide_k3_id_miss_envs=id_miss23)
+                k2_vs_collide_k3_id_miss_envs=id_miss23,
+                **{f"{k}_n4_e1024": times4[k] for k in
+                   ("ms", "bound_ms", "k2_ms_same_input", "solve_share_of_k2")},
+                ptxas=ptx["K3"])
     phase(f"19/19 report: every phase passed in {time.perf_counter() - start:.1f} s")
     print(json.dumps({"kernels": [k1, k2, k3, k45, k6], "rollout": rollout,
                       "pixel_main_path": {k: v for k, v in px_run.items()},

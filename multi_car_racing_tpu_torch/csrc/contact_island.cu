@@ -1,10 +1,10 @@
-// Full-contact physics island, one warp per env: tire model, force
-// integration, revolute-joint limit init, the car-car Collide pass
-// (b2CollidePolygons over every fixture pair of every car pair, feature-id
-// warm-start match) and the Gauss-Seidel island solve of Box2D 2.3.5's
-// world.Step with the contact sub-passes interleaved: warm start (contacts,
-// then joints), velocity iterations (joints, then contacts), clamped
-// integration, position iterations (contacts, then joints).
+// Full-contact physics island: tire model, force integration,
+// revolute-joint limit init, the car-car Collide pass (b2CollidePolygons
+// over every fixture pair of every car pair, feature-id warm-start match)
+// and the Gauss-Seidel island solve of Box2D 2.3.5's world.Step with the
+// contact sub-passes interleaved: warm start (contacts, then joints),
+// velocity iterations (joints, then contacts), clamped integration, position
+// iterations (contacts, then joints).
 //
 // Replaces the TPU kernel multi_car_racing_tpu/physics/pallas_world.py ::
 // _make_mega_kernel (full-contact variant, pallas_call at :1623 through
@@ -13,25 +13,35 @@
 // (tire_step -> collide -> make_bundle -> world_step -> extract_state); the
 // per-car chain is car_chain.cuh's, shared with csrc/joints_island.cu.
 //
-// Layout. One warp per env, as contact_rows.cuh sets out: lanes 0..N-1
-// carry the cars' chains in registers, the MM = N(N-1)/2 * 48 manifold rows
-// are spread over the 32 lanes, bodies and row constants sit in shared
-// memory, and every contact sub-pass is Jacobi across rows with per-body
-// sums in the routing table's fixed order (bit-identical launches).
+// Two launches, both made by contact_island_launch (one K2 call per step):
 //
-// Branch. Each env first computes its broadphase flag from the pre-solve
-// poses (fattened AABBs per fixture-body pair, as fused_world.near_flags).
-// A far env's Collide pass would cull every pair and each contact sub-pass
-// would add exact zeros, so a far warp runs the joints-only chain instead
-// and writes zero impulses and ids -1. The branch is warp-uniform.
+// 1. The far pass, one thread per car as in joints_island.cu. Each thread
+//    computes its env's broadphase flag from the pre-solve poses (fattened
+//    AABBs per fixture-body pair, as fused_world.near_flags). A far env's
+//    Collide pass would cull every pair and each contact sub-pass would add
+//    exact zeros, so its cars are independent single-car islands: each
+//    thread runs car_chain.cuh's chain on its car, exactly as K1 does, and
+//    writes its share of the env's zero impulses and ids -1. A near env's
+//    car 0 appends the env to a device-side list (a warp-aggregated
+//    atomicAdd on the list's count; the list's order is not deterministic,
+//    but each env's outputs depend only on that env).
+// 2. The near pass, one warp per listed env, as contact_rows.cuh sets out:
+//    lanes 0..N-1 carry the cars' chains in registers, the MM = N(N-1)/2 *
+//    48 manifold rows are spread over the 32 lanes for Collide, and the
+//    solve walks only the live rows and each body's live routing entries,
+//    with per-body sums in the routing table's fixed order (bit-identical
+//    launches). Its grid covers E warps; a warp past the list's count
+//    returns at once. The count is never read on the host.
 //
 // What bounds it. The joints chain is K1's (~5.4e4 fp32 ops per car). A near
 // env adds the SAT of every row (~580 ops), the clipping of each live row
 // (~310), and per live contact point ~66 ops per contact velocity iteration
 // and ~30 per position iteration (fused_world.contact_island_flops counts
 // only the work the data needs; this kernel does more, see there). The bound
-// is operations, but the solve is a chain of 240 dependent iterations per
-// env with 8 warp barriers per velocity iteration, so latency sets the time.
+// is operations, but each env's solve is a chain of 240 dependent
+// iterations, and a near env's has 8 warp barriers per velocity iteration,
+// so latency sets the time: the far pass at K1's, the near pass at the
+// chain of one near warp.
 //
 // Arithmetic: fp32 throughout; precise sinf/cosf/sqrtf and division (no fast
 // math); sign(0) == 0; 1/det through a select.
@@ -40,14 +50,15 @@
 // -Xcompiler -fPIC (multi_car_racing_tpu_torch/_cuda.py); plain C interface
 // loaded with ctypes. The per-car chain, the row layout and the car
 // parameters are car_chain.cuh's; the shared arrays, make_bundle's row
-// constants and the contact sub-passes are contact_rows.cuh's, shared with
-// csrc/solve_island.cu.
+// constants, the compact lists and the contact sub-passes are
+// contact_rows.cuh's, shared with csrc/solve_island.cu.
 
 #include "contact_rows.cuh"
 
 namespace {
 
 constexpr int kWarpsPerBlock = 4;
+constexpr int kFarThreads = 64;
 
 // ---------------------------------------------------------------------------
 // Contacts.
@@ -199,23 +210,140 @@ __device__ __forceinline__ int collide_row(int r, int MM, const int* __restrict_
   return cid;
 }
 
+// ---------------------------------------------------------------------------
+// Broadphase.
+// ---------------------------------------------------------------------------
+
+// One body's fattened-AABB box: centre and half extents.
+struct Box {
+  float ox, oy, hx, hy;
+};
+
+// The five boxes (hull, then wheels) of car column `col` of the packed
+// (rows, E*N) input, from its pre-solve pose.
+__device__ __forceinline__ void car_boxes(const float* __restrict__ fin, size_t col, size_t sn,
+                                          const float* __restrict__ ctab, Box* bx) {
+#define IN(r) fin[static_cast<size_t>(r) * sn + col]
+  const float hcx = IN(IN_HULL + 3), hcy = IN(IN_HULL + 4), ha = IN(IN_HULL + 5);
+  const float s = sinf(ha), c = cosf(ha);
+  const float ac = fabsf(c), as = fabsf(s);
+  bx[0].ox = hcx + c * ctab[C_HULL_MID_X] - s * ctab[C_HULL_MID_Y];
+  bx[0].oy = hcy + s * ctab[C_HULL_MID_X] + c * ctab[C_HULL_MID_Y];
+  bx[0].hx = ac * ctab[C_HULL_HALF_X] + as * ctab[C_HULL_HALF_Y];
+  bx[0].hy = as * ctab[C_HULL_HALF_X] + ac * ctab[C_HULL_HALF_Y];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const float wa = IN(IN_WHEEL + 20 + k);
+    const float ws = fabsf(sinf(wa)), wc = fabsf(cosf(wa));
+    bx[1 + k].ox = IN(IN_WHEEL + 12 + k);
+    bx[1 + k].oy = IN(IN_WHEEL + 16 + k);
+    bx[1 + k].hx = wc * ctab[C_WHEEL_HALF_X] + ws * ctab[C_WHEEL_HALF_Y];
+    bx[1 + k].hy = ws * ctab[C_WHEEL_HALF_X] + wc * ctab[C_WHEEL_HALF_Y];
+  }
+#undef IN
+}
+
+__device__ __forceinline__ bool box_overlap(const Box& a, const Box& b, float slack) {
+  return aabb_overlap(a.ox, a.oy, a.hx, a.hy, b.ox, b.oy, b.hx, b.hy, slack);
+}
+
+// The broadphase flag of env e (cars e*N .. e*N + N-1): could any car pair
+// produce a contact? Hull-hull and hull-wheel both ways, per pair.
+__device__ __forceinline__ bool env_near(const float* __restrict__ fin, size_t sn, int e, int N,
+                                         const float* __restrict__ ctab) {
+  const float slack = ctab[C_BP_SLACK];
+  const size_t c0 = static_cast<size_t>(e) * N;
+  for (int a = 0; a < N; ++a) {
+    Box A[5];
+    car_boxes(fin, c0 + a, sn, ctab, A);
+    for (int b = a + 1; b < N; ++b) {
+      Box B[5];
+      car_boxes(fin, c0 + b, sn, ctab, B);
+      bool hit = box_overlap(A[0], B[0], slack);
+#pragma unroll
+      for (int k = 1; k <= 4; ++k) {
+        hit = hit || box_overlap(A[0], B[k], slack) || box_overlap(A[k], B[0], slack);
+      }
+      if (hit) return true;
+    }
+  }
+  return false;
+}
+
+// ---------------------------------------------------------------------------
+// The far pass: one thread per car.
+// ---------------------------------------------------------------------------
+
+__global__ void __launch_bounds__(kFarThreads)
+far_pass_kernel(const float* __restrict__ fin, const int* __restrict__ lsin,
+                float* __restrict__ fout, int* __restrict__ lsout, float* __restrict__ nio,
+                float* __restrict__ tio, int* __restrict__ idso, const float* __restrict__ prm,
+                const float* __restrict__ ctab, int* __restrict__ near_list,
+                int* __restrict__ near_count, int E, int N, int MM, int vel_iters,
+                int pos_iters) {
+  const int n_cars = E * N;
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const bool active = i < n_cars;
+  const int e = active ? i / N : 0;
+  const int n = i - e * N;
+  const size_t sn = static_cast<size_t>(n_cars);
+  const bool near = active && env_near(fin, sn, e, N, ctab);
+
+  // Car 0 of each near env appends the env to the near list: one atomicAdd
+  // per warp, each env at the warp's base plus its rank among the warp's.
+  const bool head = near && n == 0;
+  const unsigned m = __ballot_sync(kFull, head);
+  if (m != 0u) {
+    const int lane = threadIdx.x & 31;
+    const int leader = __ffs(m) - 1;
+    int base = 0;
+    if (lane == leader) base = atomicAdd(near_count, __popc(m));
+    base = __shfl_sync(kFull, base, leader);
+    if (head) near_list[base + __popc(m & ((1u << lane) - 1u))] = e;
+  }
+  if (!active || near) return;
+
+  // A far env: K1's chain on this car, then its share of the env's carry.
+  float p[N_PARAMS];
+#pragma unroll
+  for (int q = 0; q < N_PARAMS; ++q) p[q] = prm[q];
+  Car car;
+  car_begin(car, fin, lsin, i, sn, p);
+  joints_chain(car, p, vel_iters, pos_iters);
+  car_store(car, fout, lsout, i, sn);
+  const size_t row0 = static_cast<size_t>(e) * MM;
+  for (int r = n; r < MM; r += N) {
+    const size_t g = row0 + r;
+    nio[g * 2] = 0.f;
+    nio[g * 2 + 1] = 0.f;
+    tio[g * 2] = 0.f;
+    tio[g * 2 + 1] = 0.f;
+    idso[g] = -1;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The near pass: one warp per env of the near list.
+// ---------------------------------------------------------------------------
+
 __global__ void __launch_bounds__(32 * kWarpsPerBlock)
-contact_island_kernel(const float* __restrict__ fin, const int* __restrict__ lsin,
-                      const float* __restrict__ pni, const float* __restrict__ pti,
-                      const int* __restrict__ pids, float* __restrict__ fout,
-                      int* __restrict__ lsout, float* __restrict__ nio,
-                      float* __restrict__ tio, int* __restrict__ idso,
-                      const float* __restrict__ prm, const float* __restrict__ ctab,
-                      const int* __restrict__ itab, int E, int N, int MM,
-                      int vel_iters, int pos_iters, int k_vel, int k_pos,
-                      int warps_per_block) {
+near_pass_kernel(const float* __restrict__ fin, const int* __restrict__ lsin,
+                 const float* __restrict__ pni, const float* __restrict__ pti,
+                 const int* __restrict__ pids, float* __restrict__ fout,
+                 int* __restrict__ lsout, float* __restrict__ nio,
+                 float* __restrict__ tio, int* __restrict__ idso,
+                 const float* __restrict__ prm, const float* __restrict__ ctab,
+                 const int* __restrict__ itab, const int* __restrict__ near_list,
+                 const int* __restrict__ near_count, int E, int N, int MM,
+                 int vel_iters, int pos_iters, int k_vel, int k_pos,
+                 int warps_per_block) {
   extern __shared__ float smem[];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int e = blockIdx.x * warps_per_block + warp;
-  if (e >= E) return;                       // whole warps only
+  const int w = blockIdx.x * warps_per_block + warp;
+  if (w >= *near_count) return;             // whole warps only
+  const int e = near_list[w];
   const int NB = 5 * N;
-  const int P = N * (N - 1) / 2;
   const size_t sn = static_cast<size_t>(E) * N;
   const size_t ci = static_cast<size_t>(e) * N + lane;   // this lane's car
   const bool has_car = lane < N;
@@ -223,8 +351,6 @@ contact_island_kernel(const float* __restrict__ fin, const int* __restrict__ lsi
 
   float* S = smem + static_cast<size_t>(warp) * warp_smem_floats(N, MM);
   const Shared sh{S, NB, MM};
-  const int* offsets = itab + 4 * MM;
-  const int* entries = offsets + NB + 1;
 
   float p[N_PARAMS];
 #pragma unroll
@@ -233,59 +359,7 @@ contact_island_kernel(const float* __restrict__ fin, const int* __restrict__ lsi
   Car car;
   if (has_car) car_begin(car, fin, lsin, ci, sn, p);
 
-  // ---- broadphase on the pre-solve poses: each body's fattened-AABB box
-  // (center, half extents) in the B_OX/B_OY/B_COS/B_SIN arrays for now.
-  if (has_car) {
-    const float s = sinf(car.ha), c = cosf(car.ha);
-    const float ac = fabsf(c), as = fabsf(s);
-    sh.b(B_OX)[b0] = car.hcx + c * ctab[C_HULL_MID_X] - s * ctab[C_HULL_MID_Y];
-    sh.b(B_OY)[b0] = car.hcy + s * ctab[C_HULL_MID_X] + c * ctab[C_HULL_MID_Y];
-    sh.b(B_COS)[b0] = ac * ctab[C_HULL_HALF_X] + as * ctab[C_HULL_HALF_Y];
-    sh.b(B_SIN)[b0] = as * ctab[C_HULL_HALF_X] + ac * ctab[C_HULL_HALF_Y];
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const float ws = fabsf(sinf(car.wa[k])), wc = fabsf(cosf(car.wa[k]));
-      sh.b(B_OX)[b0 + 1 + k] = car.wcx[k];
-      sh.b(B_OY)[b0 + 1 + k] = car.wcy[k];
-      sh.b(B_COS)[b0 + 1 + k] = wc * ctab[C_WHEEL_HALF_X] + ws * ctab[C_WHEEL_HALF_Y];
-      sh.b(B_SIN)[b0 + 1 + k] = ws * ctab[C_WHEEL_HALF_X] + wc * ctab[C_WHEEL_HALF_Y];
-    }
-  }
-  __syncwarp();
-  bool my_near = false;
-  const float slack = ctab[C_BP_SLACK];
-  for (int q = lane; q < P; q += 32) {
-    // Pair q's rows start at q * 48; their body slots name the two cars.
-    const int ha = itab[2 * MM + q * 48] / 5 * 5, hb = itab[3 * MM + q * 48] / 5 * 5;
-    bool hit = aabb_overlap(sh.b(B_OX)[ha], sh.b(B_OY)[ha], sh.b(B_COS)[ha], sh.b(B_SIN)[ha],
-                            sh.b(B_OX)[hb], sh.b(B_OY)[hb], sh.b(B_COS)[hb], sh.b(B_SIN)[hb], slack);
-    for (int k = 1; k <= 4; ++k) {
-      hit = hit || aabb_overlap(sh.b(B_OX)[ha], sh.b(B_OY)[ha], sh.b(B_COS)[ha], sh.b(B_SIN)[ha],
-                                sh.b(B_OX)[hb + k], sh.b(B_OY)[hb + k], sh.b(B_COS)[hb + k],
-                                sh.b(B_SIN)[hb + k], slack)
-                || aabb_overlap(sh.b(B_OX)[ha + k], sh.b(B_OY)[ha + k], sh.b(B_COS)[ha + k],
-                                sh.b(B_SIN)[ha + k], sh.b(B_OX)[hb], sh.b(B_OY)[hb], sh.b(B_COS)[hb],
-                                sh.b(B_SIN)[hb], slack);
-    }
-    my_near = my_near || hit;
-  }
-  const bool near = __any_sync(kFull, my_near);
-
-  const size_t row0 = static_cast<size_t>(e) * MM;
-  if (!near) {
-    // Collide would cull every pair and every contact sub-pass would add
-    // exact zeros: the joints-only chain, with the same iteration counts.
-    if (has_car) {
-      joints_chain(car, p, vel_iters, pos_iters);
-      car_store(car, fout, lsout, ci, sn);
-    }
-    store_zero_impulses(nio, tio, row0, MM, lane);
-    for (int r = lane; r < MM; r += 32) idso[row0 + r] = -1;
-    return;
-  }
-
-  // ---- near env. Pre-solve poses and the force-integrated velocities.
-  __syncwarp();                             // done reading the broadphase boxes
+  // ---- pre-solve poses and the force-integrated velocities.
   if (has_car) {
     put_velocities(car, sh, b0);
     put_positions(car, sh, b0);
@@ -308,6 +382,7 @@ contact_island_kernel(const float* __restrict__ fin, const int* __restrict__ lsi
   __syncwarp();
 
   // ---- Collide pass + make_bundle.
+  const size_t row0 = static_cast<size_t>(e) * MM;
   for (int r = lane; r < MM; r += 32) {
     const size_t g = row0 + r;
     idso[g] = collide_row(r, MM, itab, sh, ctab, pids[g], pni[g * 2],
@@ -315,8 +390,8 @@ contact_island_kernel(const float* __restrict__ fin, const int* __restrict__ lsi
   }
   __syncwarp();
 
-  solve_contact_island(car, has_car, b0, sh, itab, offsets, entries, ctab, p, NB, MM, lane,
-                       vel_iters, pos_iters, k_vel, k_pos);
+  solve_contact_island<true>(car, has_car, b0, sh, itab, ctab, p, NB, MM, lane, vel_iters,
+                             pos_iters, k_vel, k_pos);
   if (has_car) car_store(car, fout, lsout, ci, sn);
   store_impulses(sh, nio, tio, row0, MM, lane);
 }
@@ -326,31 +401,42 @@ contact_island_kernel(const float* __restrict__ fin, const int* __restrict__ lsi
 extern "C" {
 
 // Launches the island on `stream` for E envs of N >= 2 cars (MM manifold rows
-// each). Returns the CUDA error after the launch (0 on success); does not
-// synchronise.
+// each): the far pass, then the near pass over the envs it listed.
+// near_list (E ints) and near_count (1 int) are device buffers; the count is
+// zeroed here and holds the number of near envs after the launch. Returns
+// the CUDA error after the launches (0 on success); does not synchronise.
 int contact_island_launch(const float* fin, const int* lsin, const float* pni,
                           const float* pti, const int* pids, float* fout, int* lsout,
                           float* nio, float* tio, int* idso, const float* prm,
-                          const float* ctab, const int* itab, int E, int N, int MM,
-                          int vel_iters, int pos_iters, int k_vel, int k_pos,
-                          void* stream) {
+                          const float* ctab, const int* itab, int* near_list,
+                          int* near_count, int E, int N, int MM, int vel_iters,
+                          int pos_iters, int k_vel, int k_pos, void* stream) {
   if (E <= 0) return 0;
   if (N < 2 || N > 32 || MM != N * (N - 1) / 2 * 48) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaMemsetAsync(near_count, 0, sizeof(int), st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int n_cars = E * N;
+  far_pass_kernel<<<(n_cars + kFarThreads - 1) / kFarThreads, kFarThreads, 0, st>>>(
+      fin, lsin, fout, lsout, nio, tio, idso, prm, ctab, near_list, near_count, E, N, MM,
+      vel_iters, pos_iters);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+
   const size_t per_warp = warp_smem_floats(N, MM) * sizeof(float);
   const int warps = fit_warps_per_block(per_warp, kWarpsPerBlock);
   const size_t smem = warps * per_warp;
   if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        contact_island_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
+    err = cudaFuncSetAttribute(near_pass_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   const int blocks = (E + warps - 1) / warps;
-  contact_island_kernel<<<blocks, 32 * warps, smem, static_cast<cudaStream_t>(stream)>>>(
-      fin, lsin, pni, pti, pids, fout, lsout, nio, tio, idso, prm, ctab, itab, E, N,
-      MM, vel_iters, pos_iters, k_vel, k_pos, warps);
+  near_pass_kernel<<<blocks, 32 * warps, smem, st>>>(
+      fin, lsin, pni, pti, pids, fout, lsout, nio, tio, idso, prm, ctab, itab, near_list,
+      near_count, E, N, MM, vel_iters, pos_iters, k_vel, k_pos, warps);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -15,10 +15,11 @@
 // against the plain Collide pass followed by this kernel separates K2's
 // in-kernel Collide from its solve, and gives the solve's own time.
 //
-// Layout. As contact_island.cu (contact_rows.cuh): one warp per env, lanes
-// 0..N-1 carry the cars' chains in registers (car_chain.cuh's
+// Layout. As contact_island.cu's near pass (contact_rows.cuh): one warp per
+// env, lanes 0..N-1 carry the cars' chains in registers (car_chain.cuh's
 // car_begin_solved loads a car after the tire model), the MM rows are spread
-// over the lanes, bodies and row constants sit in shared memory, and every
+// over the lanes, bodies and row constants sit in shared memory, the solve
+// walks only the live rows and each body's live routing entries, and every
 // per-body impulse sum runs in the routing table's fixed order, so two
 // launches give the same bits. Each row is read once from global memory,
 // from the bundle's contiguous (E, MM, ...) tensors: normal, points,
@@ -129,10 +130,8 @@ solve_island_kernel(const float* __restrict__ fin, const int* __restrict__ lsin,
   }
   __syncwarp();
 
-  const int* offsets = itab + 4 * MM;
-  const int* entries = offsets + NB + 1;
-  solve_contact_island(car, has_car, b0, sh, itab, offsets, entries, ctab, p, NB, MM, lane,
-                       vel_iters, pos_iters, k_vel, k_pos);
+  solve_contact_island<false>(car, has_car, b0, sh, itab, ctab, p, NB, MM, lane, vel_iters,
+                             pos_iters, k_vel, k_pos);
   if (has_car) car_store_solved(car, fout, lsout, ci, sn);
   store_impulses(sh, nio, tio, row0, MM, lane);
 }

@@ -10,9 +10,12 @@ tensors it launches a hand-written kernel:
   kernel ``multi_car_racing_tpu/physics/pallas_world.py::_make_mega_kernel``
   with ``force_no_contacts=True``;
 - two or more cars per env: ``csrc/contact_island.cu`` (K2), which replaces
-  the full-contact ``_make_mega_kernel``. One launch covers every env; each
-  env branches inside the kernel on its own broadphase flag (the test of
-  :func:`near_flags`), so there is no host read and no env partition.
+  the full-contact ``_make_mega_kernel``. One K2 call per step makes two
+  launches: a far pass, one thread per car, that computes each env's
+  broadphase flag (the test of :func:`near_flags`), runs a far env's cars as
+  K1 does and lists the near envs on the card; then a near pass, one warp
+  per listed env, with the Collide pass and a contact solve over the live
+  rows only (the lists of :func:`live_routing`). There is no host read.
 
 On CPU tensors it runs ``island_step_plain``, the same function as
 ``tire_step -> collide -> make_bundle -> world_step -> extract_state`` in
@@ -190,14 +193,52 @@ def contact_index_table(num_cars: int) -> np.ndarray:
     return np.concatenate([fix_a, fix_b, rows_a, rows_b, offsets, entries]).astype(np.int32)
 
 
+def live_routing(point_ok: torch.Tensor, num_cars: int):
+    """The compact lists K2's and K3's solve walk (``build_live_lists`` in
+    csrc/contact_rows.cuh), from a (E, MM, 2) point_ok, in plain torch:
+
+    - ``rows`` (E, MM) int32: the rows with a live point, ascending, then -1;
+    - ``n_rows`` (E,) int32: their number;
+    - ``entries`` (E, 2 MM) int32: for body ``b``, its routing entries
+      (``row*2 + side``, :func:`contact_index_table`) whose row is live, in
+      the table's order, from the body's table offset on; -1 after them;
+    - ``counts`` (E, 5 * num_cars) int32: each body's live entries.
+
+    A body's impulse sums add its live entries in this order."""
+    tab = contact_index_table(num_cars)
+    mm = len(collide.car_pairs(num_cars)) * collide.M_PER_PAIR
+    nb = 5 * num_cars
+    offsets = torch.as_tensor(tab[4 * mm:4 * mm + nb + 1], dtype=torch.int64)
+    table = torch.as_tensor(tab[4 * mm + nb + 1:], dtype=torch.int64, device=point_ok.device)
+    live = point_ok.any(-1)                                            # (E, MM)
+    n_rows = live.sum(1)
+    order = torch.argsort((~live).to(torch.int8), dim=1, stable=True)
+    col = torch.arange(mm, device=live.device)
+    rows = torch.where(col[None] < n_rows[:, None], order, -1)
+    ent_live = live[:, table >> 1]                                     # (E, 2 MM)
+    body = torch.repeat_interleave(torch.arange(nb), offsets[1:] - offsets[:-1]).to(live.device)
+    # Within each body's segment, live entries first, each group in table order.
+    perm = torch.argsort(body[None] * 2 + (~ent_live).to(torch.int64), dim=1, stable=True)
+    counts = torch.zeros((live.shape[0], nb), dtype=torch.int64, device=live.device)
+    counts.index_add_(1, body, ent_live.to(torch.int64))
+    slot = torch.arange(2 * mm, device=live.device)
+    keep = slot[None] - offsets.to(live.device)[body][None] < counts[:, body]
+    entries = torch.where(keep, table[perm], -1)
+    return (rows.to(torch.int32), n_rows.to(torch.int32), entries.to(torch.int32),
+            counts.to(torch.int32))
+
+
 # fp32 operations of K2 beyond K1's chain, counted from csrc/contact_island.cu
 # as for K1 (a division, square root, sine or cosine counts 8). Only what this
 # call's data needs is counted: every env's broadphase; in a near env the SAT
 # of every row (it decides each row) but the world polygons once per fixture;
 # the clipping of each row whose manifold is live; and the solve of each live
-# contact point and of each body a live point touches. The kernel does more
-# (each row rebuilds its two polygons and computes arms and masses, and every
-# body walks its whole routing list in every sub-pass).
+# contact point and of each body a live point touches. The kernel does more:
+# each row rebuilds its two polygons and computes arms and masses, the far
+# pass computes an env's broadphase once per car, and a live row's two points
+# both take part in every sub-pass (a dead point adds zeros). The contact
+# solve walks only the live rows and each body only its live entries
+# (live_routing).
 FLOPS_BROADPHASE_CAR = 136      # every env, per car: 5 boxes (5 sin/cos pairs)
 FLOPS_BROADPHASE_PAIR = 90      # ... per car pair: 9 box-overlap tests
 FLOPS_BODY_FRAME = 24           # near env, per body: sin/cos and fixture origin
@@ -372,9 +413,7 @@ def _library(name: str = KERNEL):
         vp, ci = ctypes.c_void_p, ctypes.c_int
         if name == KERNEL:
             fn.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, vp]
-        elif name == CONTACT_KERNEL:
-            fn.argtypes = [vp] * 13 + [ci] * 7 + [vp]
-        else:
+        else:                   # contact_island and solve_island
             fn.argtypes = [vp] * 15 + [ci] * 7 + [vp]
         fn.restype = ci
         err = getattr(lib, f"{name}_error_string")
@@ -536,7 +575,12 @@ def launch_contacts(fin: torch.Tensor, ls_in: torch.Tensor, cs: ContactState,
     """Launch K2 on packed car rows (from :func:`pack_inputs`, car index
     e*num_cars + n) and the contact carry, on the current stream; returns
     (fout (59, n), ls_out (4, n), new ContactState). Counts the launch in
-    ``island_step.contact_launches``."""
+    ``island_step.contact_launches``.
+
+    K2 is two kernels on the stream: the far pass (one thread per car) and
+    the near pass (one warp per near env, from a list the far pass fills on
+    the card). The list's count stays on the card, in the int32 tensor
+    ``launch_contacts.near_count`` of the last call; nothing here reads it."""
     dev = fin.device
     n_cars = fin.shape[1]
     E = n_cars // num_cars
@@ -556,6 +600,8 @@ def launch_contacts(fin: torch.Tensor, ls_in: torch.Tensor, cs: ContactState,
     ls_out = torch.empty((4, n_cars), dtype=torch.int32, device=dev)
     new = ContactState(normal_imp=torch.empty_like(pni), tangent_imp=torch.empty_like(pti),
                        ids=torch.empty_like(pids))
+    near_list = torch.empty(E, dtype=torch.int32, device=dev)
+    near_count = torch.empty(1, dtype=torch.int32, device=dev)
     k_vel = min(C.CONTACT_VELOCITY_ITERS, velocity_iters)
     k_pos = min(C.CONTACT_POSITION_ITERS, position_iters)
     with torch.cuda.device(dev):      # the stream and the launch belong to dev
@@ -564,6 +610,7 @@ def launch_contacts(fin: torch.Tensor, ls_in: torch.Tensor, cs: ContactState,
             pids.data_ptr(), fout.data_ptr(), ls_out.data_ptr(),
             new.normal_imp.data_ptr(), new.tangent_imp.data_ptr(), new.ids.data_ptr(),
             _params(dev).data_ptr(), ctab.data_ptr(), itab.data_ptr(),
+            near_list.data_ptr(), near_count.data_ptr(),
             E, num_cars, mm, int(velocity_iters), int(position_iters), k_vel, k_pos,
             torch.cuda.current_stream(dev).cuda_stream,
         )
@@ -571,6 +618,7 @@ def launch_contacts(fin: torch.Tensor, ls_in: torch.Tensor, cs: ContactState,
         msg = lib.contact_island_error_string(rc).decode()
         raise RuntimeError(f"contact_island launch failed: {msg} ({rc})")
     island_step.contact_launches += 1
+    launch_contacts.near_count = near_count
     return fout, ls_out, new
 
 
@@ -602,6 +650,7 @@ def island_step(cars: CarState, wheel_on_road: torch.Tensor,
 
 island_step.launches = 0
 island_step.contact_launches = 0
+launch_contacts.near_count = None
 
 
 # ---------------------------------------------------------------------------

@@ -16,6 +16,7 @@ import torch
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "multi_car_racing_tpu_torch"
 SMOKE = ROOT / "chip_smoke.py"
+COMPARE = ROOT / "compare_parent.py"
 FORBIDDEN = ("jax", "jaxlib", "flax", "orbax", "multi_car_racing_tpu")
 
 
@@ -63,7 +64,7 @@ def _imports(path: Path):
 
 
 @pytest.mark.parametrize("path", sorted(str(p.relative_to(ROOT)) for p in
-                                        list(PORT.rglob("*.py")) + [SMOKE]))
+                                        list(PORT.rglob("*.py")) + [SMOKE, COMPARE]))
 def test_sources_import_nothing_of_jax(path):
     for name in _imports(ROOT / path):
         top = name.split(".")[0]

@@ -17,6 +17,8 @@ from multi_car_racing_tpu_torch import EnvConfig, env as penv
 from multi_car_racing_tpu_torch.physics import collide, fused_world, tire, track_engine, world
 from multi_car_racing_tpu_torch.physics.state import apply_controls
 from multi_car_racing_tpu_torch.render import pixels
+from multi_car_racing_tpu_torch.util import tree_map
+from test_torch_contact_compact import piled_cars
 from test_torch_paint_cull import jitter
 
 TOL = 5e-4
@@ -138,6 +140,120 @@ def test_contact_wrapper_rejects_bad_inputs_on_card():
     with pytest.raises(ValueError):
         fused_world.island_step(pre, on_road, type(cs)(cs.normal_imp[:, :47], cs.tangent_imp,
                                                        cs.ids))
+
+
+def _spawn_tick(num_envs, num_cars=2):
+    """A spawn tick's island inputs at ``num_envs`` envs (a env's two cars
+    6 m apart on the grid: none near at N = 2)."""
+    cfg = EnvConfig(num_agents=num_cars, use_random_direction=False)
+    pool = penv.make_track_pool(cfg, range(4), device="cuda")
+    idx, orders, dirs = penv.draw_episodes(cfg, num_envs, 4,
+                                           torch.Generator(device="cuda").manual_seed(2))
+    sp = penv.spawn_state(cfg, tree_map(lambda x: x.index_select(0, idx), pool), orders, dirs)
+    return sp.cars, sp.wheel_on_road, sp.contacts
+
+
+def _move_car1(cars, offset):
+    hc, wc = cars.hull_c.clone(), cars.wheel_c.clone()
+    hc[:, 1] += offset
+    wc[:, 1] += offset[:, None]
+    return cars.replace(hull_c=hc, wheel_c=wc)
+
+
+def _all_far(num_envs):
+    """A driven batch with car 1 of every env moved 500 m in x."""
+    pre, on_road, cs = _k2_state(num_envs, 2, 40)
+    off = torch.tensor([500.0, 0.0], device="cuda").expand(num_envs, 2)
+    return _move_car1(pre, off), on_road, cs
+
+
+def _all_near(num_envs):
+    """A spawn tick with car 1 pulled to 2.7 m of car 0: every env near,
+    each with a live manifold (the cars touch at rest, so the solve's normal
+    impulses may all be zero)."""
+    cars, on_road, cs = _spawn_tick(num_envs)
+    return _move_car1(cars, -0.55 * (cars.hull_c[:, 1] - cars.hull_c[:, 0])), on_road, cs
+
+
+def _piled():
+    cars = piled_cars(8, 5)
+    cars = cars.replace(**{f.name: getattr(cars, f.name).cuda() for f in dataclasses.fields(cars)})
+    return (cars, torch.ones((8, 4, 4), dtype=torch.bool, device="cuda"),
+            collide.init_contact_state(8, 4, device="cuda"))
+
+
+def _check_k2_vs_plain(pre, on_road, cs, num_cars):
+    k, ks, kc = fused_world.island_step(pre, on_road, cs)
+    p, ps, pc = fused_world.island_step_plain(pre, on_road, cs)
+    torch.cuda.synchronize()
+    for f in CAR_FIELDS:
+        _assert_bars(f, getattr(p, f), getattr(k, f), getattr(pre, f))
+    _assert_bars("normal_imp", pc.normal_imp, kc.normal_imp, cs.normal_imp)
+    _assert_bars("tangent_imp", pc.tangent_imp, kc.tangent_imp, cs.tangent_imp)
+    assert torch.equal(k.limit_state, p.limit_state)
+    assert int((kc.ids != pc.ids).any(1).sum()) <= 1
+    assert int((ks != ps).sum()) <= 1
+    return pc
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("inputs", ["driven", "all-far"])
+def test_contact_far_envs_equal_k1_on_card(inputs):
+    """K2's far pass runs each far env's cars through K1's chain: byte-equal
+    to K1 on the same packed cars, zero impulses and ids -1; the near count
+    it leaves on the card equals near_flags' sum."""
+    _need_card()
+    pre, on_road, cs = _k2_state(300, 2, 40) if inputs == "driven" else _all_far(300)
+    near = fused_world.near_flags(pre)
+    fin, ls_in = fused_world.pack_inputs(pre, on_road)
+    fout, ls_out, kc = fused_world.launch_contacts(fin, ls_in, cs, 2)
+    k1, k1_ls = fused_world.launch(fin, ls_in, fin.shape[1])
+    torch.cuda.synchronize()
+    assert int(fused_world.launch_contacts.near_count) == int(near.sum())
+    far = (~near)[:, None].expand(-1, 2).reshape(-1)
+    assert int(far.sum()) > 0
+    assert torch.equal(fout[:, far], k1[:, far]) and torch.equal(ls_out[:, far], k1_ls[:, far])
+    assert bool((kc.ids[~near] == -1).all()) and not bool(kc.normal_imp[~near].any())
+    assert not bool(kc.tangent_imp[~near].any())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("inputs", ["all-far", "all-near"])
+def test_contact_kernel_matches_plain_on_all_far_and_all_near_batches(inputs):
+    _need_card()
+    pre, on_road, cs = _all_far(256) if inputs == "all-far" else _all_near(256)
+    near = fused_world.near_flags(pre)
+    assert bool(near.all()) if inputs == "all-near" else not bool(near.any())
+    pc = _check_k2_vs_plain(pre, on_road, cs, 2)
+    if inputs == "all-near":                   # the pulled cars touch: live manifolds
+        assert bool((pc.ids >= 0).any(1).all())
+
+
+@pytest.mark.gpu
+def test_contact_kernel_over_32_live_rows_matches_plain_on_card():
+    """Four overlapping cars per env: more than 32 live rows, so the near
+    pass's rows loop past one per lane."""
+    _need_card()
+    pre, on_road, cs = _piled()
+    live = fused_world.live_routing(collide.collide(pre, 4).point_ok, 4)[1]
+    assert int(live.max()) > 32
+    _check_k2_vs_plain(pre, on_road, cs, 4)
+
+
+@pytest.mark.gpu
+def test_contact_kernel_is_bit_identical_with_its_near_list_in_any_order():
+    """Every env near: the far pass appends 4096 envs to the near list in an
+    order that differs from launch to launch, and the outputs do not."""
+    _need_card()
+    pre, on_road, cs = _all_near(4096)
+    fin, ls_in = fused_world.pack_inputs(pre, on_road)
+    a = fused_world.launch_contacts(fin, ls_in, cs, 2)
+    b = fused_world.launch_contacts(fin, ls_in, cs, 2)
+    torch.cuda.synchronize()
+    assert int(fused_world.launch_contacts.near_count) == 4096
+    for x, y in zip((a[0], a[1], a[2].normal_imp, a[2].tangent_imp, a[2].ids),
+                    (b[0], b[1], b[2].normal_imp, b[2].tangent_imp, b[2].ids)):
+        assert torch.equal(x, y)
 
 
 def _track_inputs(num_envs, num_cars, steps):
