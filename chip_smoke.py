@@ -48,17 +48,25 @@ on coordinates of hundreds of metres), limit states equal. The track bars
 on_grass, count and nearest_beta equal, bonus within 2e-5.
   1. device: the card's name and power limit; no CUDA device -> exit 2
   2. build: the five kernels' build times and ptxas register/spill lines;
-     K2's (near and far pass) and K3's registers and spills
+     K1's, K2's (near and far pass), K3's and K4/K5's registers and spills
   3. K1 vs plain: one island step through K1 and through its plain PyTorch
      version on the same card tensors at N = 1, E = 4096, after 20 driven
-     steps; both bars; skid flags differing bounded
+     steps; both bars; skid flags differing bounded; K1's ms on that input
   4. small input: 4 envs stepped 10 times on the card and on the CPU (plain
      path) at N = 1: rewards within 2e-5, hull positions within 1e-3 m
   5. N = 1 main path: reset + 10 warm-up + 100 timed steps at E = 4096; all
      state finite; K1's launch count equals the resets plus steps and K2's
      and K3's are 0; the track kernel's count equals the resets plus steps
      and the plain track pass ran 0 times on the card; env-steps/s, K1's and
-     the track kernel's times and bounds, stage times by CUDA events
+     the track kernel's times and bounds (K4/K5's culled bound beside the
+     un-culled kernel's, with the candidates per car), stage times by CUDA
+     events. Kernel times of K1-K5 are device time per launch: 50 launches
+     captured in a CUDA graph (graph_ms), since a kernel of tens of
+     microseconds finishes before the host launches the next; K4/K5's with
+     a 128 MiB read before each launch, its own time subtracted
+     (cold_graph_ms), beside the warm replay and the kernel's device time
+     over 10 main-path steps from a torch.profiler trace; K6's (~1 ms) are
+     CUDA events over 50 launches from the host
   6. K2 vs plain at N = 2, E = 4096, on a state driven until a share of envs
      is broadphase-near: CarState fields and impulses within both bars,
      manifold ids differing bounded; fails if no env has a live contact.
@@ -66,7 +74,8 @@ on_grass, count and nearest_beta equal, bonus within 2e-5.
      far env's cars byte-equal to the same cars through K1, its carry zero,
      and K2's near count equal to near_flags' sum -- on that input, on an
      all-far one (car 1 of every env moved 500 m) and on an all-near one (a
-     spawn tick with car 1 pulled to 2.7 m of car 0); K2 vs plain on both
+     spawn tick with car 1 pulled to 2.7 m of car 0); K2 vs plain on both;
+     K2's ms on phase 6's input
   7. a rear-end ram at N = 4 driven by the port: K2 vs plain at the first
      step whose normal impulse exceeds 0.1; both bars, ids equal. Then N = 4,
      E = 1024 driven until 10% of envs are near: K2 vs plain, the far pass,
@@ -84,16 +93,27 @@ on_grass, count and nearest_beta equal, bonus within 2e-5.
      the plain tire model, Collide and make_bundle followed by K3; both
      bars, manifold ids differing bounded. K3's count read here: one launch
      per world_step_batched call of phases 9-11
- 12. two K3 launches bit-identical; K3's ms per launch (CUDA events, 50
+ 12. two K3 launches bit-identical; K3's ms per launch (CUDA graph, 50
      launches) beside K2's on the same input, its bound
      (solve_island_flops / solve_island_bytes), the plain solve's ms and the
      plain tire + Collide + make_bundle ms
  13. N = 2 main path: as phase 5 with K2 (K1's and K3's counts 0); then
      phase 12's times on the main path's last input, and K2's ms beside its
      bound on the all-far and all-near inputs
- 14. K4/K5 vs plain at N = 1 and N = 2, E = 4096: on a state driven until
-     tiles are newly visited (at N = 2, until a car earns a second-visitor
-     share) and on a spawn tick; the track bars; two launches bit-identical
+ 14. K4/K5 vs plain at N = 1 and N = 2, E = 4096, and N = 4, E = 1024: on a
+     state driven until tiles are newly visited (at N >= 2, until a car
+     earns a second-visitor share), on a spawn tick, on that tick with the
+     wheels lifted away, and on the cull's edges (track_cases.cull_cases:
+     hull origins on the road and past the kerb, across the start seam, on
+     a kerb, 30 m off the road, where the loop comes nearest to itself, and
+     wheels on the road with both origins 1 km away); the track bars; two
+     launches bit-identical; every tile the plain pass marks kept by the
+     cull's plain predicate (track_engine.track_candidates), and the
+     candidates per car (mean and max). Then on track_cases.cull_probes
+     (centreline points moved 12 m off the quads, wheels only and origins
+     only), where the cull drops marks: K4/K5 equal to
+     track_engine.track_pass_culled_plain under the track bars, which pins
+     the kernel's cull radii to the plain predicate's
  15. state-PPO rollout at N = 2, E = 4096: chunks of 64 steps with state
      observations, reset_done_envs between chunks, until a chunk has run
      after the time-limit reset; obs (E, 2, 38) finite, the time-limited envs
@@ -153,8 +173,9 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from multi_car_racing_tpu_torch import EnvConfig, _cuda, convert  # noqa: E402
 from multi_car_racing_tpu_torch import env as penv, obs as pobs, seeding  # noqa: E402
 from multi_car_racing_tpu_torch.render import pixels  # noqa: E402
-from multi_car_racing_tpu_torch.physics import collide, fused_world, tire  # noqa: E402
-from multi_car_racing_tpu_torch.physics import track_engine, world  # noqa: E402
+from multi_car_racing_tpu_torch.physics import collide, fused_world  # noqa: E402
+from multi_car_racing_tpu_torch.physics import tire, track_cases, track_engine  # noqa: E402
+from multi_car_racing_tpu_torch.physics import world  # noqa: E402
 from multi_car_racing_tpu_torch.physics.collide import ContactState  # noqa: E402
 from multi_car_racing_tpu_torch.physics.state import apply_controls, create_cars  # noqa: E402
 from multi_car_racing_tpu_torch.util import tree_leaves, tree_map  # noqa: E402
@@ -164,6 +185,8 @@ SEEDS = tuple(range(16))
 WARMUP = 10
 T = 100
 KERNEL_TIMING_LAUNCHES = 50
+L2_FLUSH_BYTES = 128 << 20     # read between K4/K5's timed launches: 2.5x the H100's L2
+PROFILE_STEPS = 10             # env steps in K4/K5's main-path profiler trace
 TOL = 5e-4                     # tests/test_pallas_world.py's kernel-vs-XLA bar
 STEP_FLOOR = 1e-3              # floor of the per-step-change scale
 SMALL_SEEDS = (0, 1, 2, 3)
@@ -195,8 +218,7 @@ RAM_STEPS = (100, 160)         # phase 7 looks for the contact in this window
 # through track_pass_batched_v2 :440).
 TRACK_TPU_KERNEL = "multi_car_racing_tpu/physics/track_engine.py:54"
 TRACK_TPU_KERNEL_V2 = "multi_car_racing_tpu/physics/track_engine.py:304"
-TRACK_NAMES = ("wheel_on_road", "visited", "bonus", "count", "tile_touched",
-               "nearest_beta", "on_grass")
+TRACK_NAMES = track_engine.OUTPUT_NAMES
 BONUS_TOL = 2e-5               # tests/test_track_engine.py's bar
 TRACK_MIN_STEPS, TRACK_MAX_STEPS = 5, 60   # phase 10 drives within this window
 # Phase 11: the env side of learner/ppo.py's state rollout (rollout_len 64,
@@ -299,6 +321,71 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
+def graph_ms(fn, reps: int) -> float:
+    """Device time per call of ``fn`` (launches only, nothing that waits on
+    the host): ``reps`` calls captured in one CUDA graph, timed by CUDA
+    events over one replay after a warm-up replay. A kernel of a few tens of
+    microseconds finishes before the host has launched the next through its
+    Python wrapper, so cuda_ms would time the host there."""
+    fn()
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def cold_graph_ms(fn, reps: int) -> tuple[float, float]:
+    """(device time per call of ``fn`` with an L2 cache that holds other
+    data, the cost of the flush): graph_ms of a read of L2_FLUSH_BYTES
+    followed by ``fn``, less graph_ms of the read alone. graph_ms replays
+    ``fn`` on one unchanged input, whose bytes can stay in the 50 MB L2
+    from one call to the next."""
+    buf = torch.zeros(L2_FLUSH_BYTES // 4, device="cuda")
+    total = torch.empty((), device="cuda")
+
+    def flush():
+        torch.sum(buf, dim=0, out=total)
+
+    flush_ms = graph_ms(flush, reps)
+    both_ms = graph_ms(lambda: (flush(), fn()), reps)
+    return both_ms - flush_ms, flush_ms
+
+
+def profiled_kernel_ms(cfg, state, actions, kernel: str) -> float | None:
+    """Device time per launch of the kernels named ``kernel`` over
+    PROFILE_STEPS env steps from ``state`` (after two unprofiled ones), from
+    a torch.profiler trace: the kernel among the main path's other work.
+    None where the trace holds no device time for it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for t in range(2):
+        state, _, _ = penv.step(cfg, state, actions[t % 8])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for t in range(PROFILE_STEPS):
+            state, _, _ = penv.step(cfg, state, actions[(2 + t) % 8])
+        torch.cuda.synchronize()
+    for ev in prof.key_averages():
+        if kernel in ev.key and ev.count:
+            us = getattr(ev, "device_time_total", None) or getattr(ev, "cuda_time_total", 0)
+            return us / 1e3 / ev.count if us else None
+    return None
+
+
 def island_kernel(cfg, fin, ls_in, contacts):
     """The island kernel of ``cfg`` on packed inputs: K1 or K2."""
     if cfg.num_agents == 1:
@@ -393,7 +480,7 @@ def kernel_times(cfg, run: dict, actions) -> dict:
     pre = apply_controls(state.cars, action)
     lagged = state.wheel_on_road
     fin, ls_in = fused_world.pack_inputs(pre, lagged)
-    kernel_ms = cuda_ms(lambda: island_kernel(cfg, fin, ls_in, state.contacts),
+    kernel_ms = graph_ms(lambda: island_kernel(cfg, fin, ls_in, state.contacts),
                         KERNEL_TIMING_LAUNCHES)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -433,28 +520,56 @@ def island_bound(pre, n: int, n_limit: int) -> dict:
 
 
 def track_times(cfg, run: dict, actions) -> dict:
-    """K4/K5's time per launch (CUDA events over the bare launch on packed
-    inputs), the plain track stage's (for the record) and the kernel's bound
-    from this input's valid tiles, on the main path's last inputs."""
+    """K4/K5's time per launch on packed inputs (cold_graph_ms, beside the
+    warm replay of graph_ms and its device time among the main path's work
+    from profiled_kernel_ms), the plain track stage's (for the record), the
+    candidates per car of the cull's plain predicate, and the kernel's bound
+    from the work this input needs -- the culled count (valid tiles,
+    candidates, the tiles whose curb the post-solve origin may lie in) --
+    beside the un-culled kernel's (every table of every valid tile), on the
+    main path's last inputs."""
     state, n = run["state"], cfg.num_agents
     pre = apply_controls(state.cars, actions[(WARMUP + T) % 8])
     post, _, _ = fused_world.island_step(pre, state.wheel_on_road, state.contacts)
     wheels, origins = track_engine.pack_cars(pre, post.hull_origin)
-    ms = cuda_ms(lambda: track_engine.launch(state.track, wheels, origins, state.visited,
-                                             state.tile_touched), KERNEL_TIMING_LAUNCHES)
+
+    def launch():
+        track_engine.launch(state.track, wheels, origins, state.visited, state.tile_touched)
+
+    warm_ms = graph_ms(launch, KERNEL_TIMING_LAUNCHES)
+    ms, flush_ms = cold_graph_ms(launch, KERNEL_TIMING_LAUNCHES)
+    path_ms = profiled_kernel_ms(cfg, state, actions, "track_pass_kernel")
     plain_ms = cuda_ms(lambda: track_engine.track_pass_plain(
         state.track, pre, post.hull_origin, state.visited, state.tile_touched, n), 5)
     mt = state.track.max_tiles
     valid = int(state.track.n_tiles.sum())
-    nbytes, flops = track_engine.track_pass_work(E, n, mt, valid_tiles=valid)
-    byte_ms = 1e3 * nbytes / PEAK_BYTES_PER_S
-    flop_ms = 1e3 * flops / PEAK_FP32_FLOPS
-    bound_ms = max(byte_ms, flop_ms)
-    phase(f"track kernel (N={n}) {ms:.5f} ms/launch ({ms / run['step_ms']:.1%} of a step), "
-          f"plain track stage {plain_ms:.4f} ms; bound {bound_ms:.5f} ms ({nbytes} bytes = "
-          f"{byte_ms:.5f} ms, {flops} fp32 ops = {flop_ms:.5f} ms, {valid} valid tiles)")
-    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": "operations" if flop_ms >= byte_ms else "bytes"}
+    cand = track_engine.track_candidates(state.track, pre, post.hull_origin)
+    near_post = track_engine.post_candidates(state.track, post.hull_origin)
+    per_car = cand.sum(-1)
+
+    def bound(nbytes, flops):
+        byte_ms, flop_ms = 1e3 * nbytes / PEAK_BYTES_PER_S, 1e3 * flops / PEAK_FP32_FLOPS
+        return {"bound_ms": max(byte_ms, flop_ms), "bytes": nbytes, "flops": flops,
+                "bound_by": "operations" if flop_ms >= byte_ms else "bytes"}
+
+    culled = bound(*track_engine.track_pass_work(E, n, mt, valid_tiles=valid, candidates=cand,
+                                                 near_post=near_post))
+    full = bound(*track_engine.track_pass_work(E, n, mt, valid_tiles=valid))
+    out = {"ms": ms, "plain_ms": plain_ms, "bound_ms": culled["bound_ms"],
+           "bound_by": culled["bound_by"], "warm_l2_ms": warm_ms, "l2_flush_ms": flush_ms,
+           "main_path_profiled_ms": path_ms, "uncull_bound_ms": full["bound_ms"],
+           "uncull_bound_by": full["bound_by"], "cand_mean": float(per_car.float().mean()),
+           "cand_max": int(per_car.max())}
+    path = "no device time in the trace" if path_ms is None else f"{path_ms:.5f} ms"
+    phase(f"track kernel (N={n}) {ms:.5f} ms/launch after an L2 flush ({ms / run['step_ms']:.1%} "
+          f"of a step; the flush's {L2_FLUSH_BYTES} bytes alone {flush_ms:.5f} ms), "
+          f"{warm_ms:.5f} replayed warm; on the main path (torch.profiler, {PROFILE_STEPS} "
+          f"steps) {path}; plain track stage {plain_ms:.4f} ms; candidates per car mean "
+          f"{out['cand_mean']:.4f}, max {out['cand_max']}; bound {culled['bound_ms']:.5f} ms "
+          f"({culled['bound_by']}: {culled['bytes']} bytes, {culled['flops']} fp32 ops, "
+          f"{valid} valid tiles); the un-culled kernel's bound {full['bound_ms']:.5f} ms "
+          f"({full['bytes']} bytes, {full['flops']} fp32 ops)")
+    return out
 
 
 def ptxas_table(name: str) -> dict:
@@ -543,11 +658,11 @@ def far_pass_check(pre, wheel_on_road, contacts, n: int, label: str) -> dict:
 
 
 def k2_time_and_bound(pre, wheel_on_road, contacts, n: int) -> dict:
-    """K2's ms per launch (CUDA events) on one input and its bound from the
+    """K2's ms per launch (graph_ms) on one input and its bound from the
     work this input needs."""
     fin, ls_in = fused_world.pack_inputs(pre, wheel_on_road)
-    ms = cuda_ms(lambda: fused_world.launch_contacts(fin, ls_in, contacts, n),
-                 KERNEL_TIMING_LAUNCHES)
+    ms = graph_ms(lambda: fused_world.launch_contacts(fin, ls_in, contacts, n),
+                  KERNEL_TIMING_LAUNCHES)
     ls_out = fused_world.launch_contacts(fin, ls_in, contacts, n)[1]
     b = island_bound(pre, n, int((ls_out != 0).sum()))
     return {"ms": ms, "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
@@ -612,16 +727,16 @@ def compare_solve(inputs, n: int, label: str) -> dict:
 
 
 def solve_times(pre, wheel_on_road, contacts, n: int) -> dict:
-    """On one step's input: K3's time per launch (CUDA events over the bare
+    """On one step's input: K3's time per launch (graph_ms over the bare
     launch on packed inputs), K2's (the whole island, tire model and Collide
     included), the plain tire model + Collide + make_bundle that feed K3,
     the plain solve's time, and K3's bound from the work this bundle needs."""
     post, force, motor, bundle = solve_inputs(pre, wheel_on_road, contacts, n)[:4]
     fin, ls_in = fused_world.pack_solve_inputs(post, force, motor)
-    ms = cuda_ms(lambda: fused_world.launch_solve(fin, ls_in, bundle, n), KERNEL_TIMING_LAUNCHES)
+    ms = graph_ms(lambda: fused_world.launch_solve(fin, ls_in, bundle, n), KERNEL_TIMING_LAUNCHES)
     fin2, ls_in2 = fused_world.pack_inputs(pre, wheel_on_road)
-    k2_ms = cuda_ms(lambda: fused_world.launch_contacts(fin2, ls_in2, contacts, n),
-                    KERNEL_TIMING_LAUNCHES)
+    k2_ms = graph_ms(lambda: fused_world.launch_contacts(fin2, ls_in2, contacts, n),
+                     KERNEL_TIMING_LAUNCHES)
     collide_ms = cuda_ms(lambda: solve_inputs(pre, wheel_on_road, contacts, n), 5)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -638,7 +753,7 @@ def solve_times(pre, wheel_on_road, contacts, n: int) -> dict:
            "bound_by": "operations" if flop_ms >= byte_ms else "bytes", "flops": flops,
            "bytes": nbytes, "k2_ms_same_input": k2_ms, "solve_share_of_k2": ms / k2_ms,
            "plain_collide_ms": collide_ms}
-    phase(f"K3 {ms:.5f} ms/launch (CUDA events, {KERNEL_TIMING_LAUNCHES} launches); bound "
+    phase(f"K3 {ms:.5f} ms/launch (CUDA graph, {KERNEL_TIMING_LAUNCHES} launches); bound "
           f"{out['bound_ms']:.5f} ms ({flops} fp32 ops = {flop_ms:.5f} ms, {nbytes} bytes = "
           f"{byte_ms:.5f} ms; {n_limit} joints at a limit, {counts['n_live_points']} live points, "
           f"{counts['n_touched_bodies']} touched bodies); K2 on the same step {k2_ms:.5f} ms, so "
@@ -676,12 +791,14 @@ def compare_track(k, p, track, label: str) -> dict:
     return out
 
 
-def track_phase(cfg, actions) -> dict:
-    """K4/K5 against the plain track pass at E envs of cfg.num_agents cars,
-    on the next step of a driven batch that gains tiles (at N >= 2 with a
-    second-visitor share) and on a spawn tick; two launches bit-identical."""
+def track_inputs(cfg, actions, envs: int = E) -> list:
+    """K4/K5's inputs at ``envs`` envs of cfg.num_agents cars: (label, the
+    track pass's arguments) for the next step of a driven batch that gains
+    tiles (at N >= 2 with a second-visitor share), a spawn tick, that tick
+    with every wheel lifted 1 km away (each touched tile from the hull-centre
+    term alone), and track_cases.cull_cases on the spawn tick's tracks."""
     n = cfg.num_agents
-    state, stepped = penv.reset_batch(cfg, SEEDS, E), None
+    state, stepped = penv.reset_batch(cfg, SEEDS, envs), None
     for t in range(TRACK_MAX_STEPS):
         state, _, _ = penv.step(cfg, state, actions[t % 8])
         if t + 1 < TRACK_MIN_STEPS:
@@ -697,32 +814,78 @@ def track_phase(cfg, actions) -> dict:
     if stepped is None:
         raise AssertionError(f"N={n}: no step in {TRACK_MAX_STEPS} gained a tile"
                              + ("" if n == 1 else " with a second-visitor share"))
-    sp = spawn_batch(cfg, E, n, state.steps.device)
-    spawn = (f"N={n}, a spawn tick", (sp.track, sp.cars, sp.cars.hull_origin, sp.visited,
-                                      sp.tile_touched, n))
-    # The spawn tick with every wheel lifted 1 km away: no wheel touches a
-    # tile, so each touched tile comes from the hull-centre term alone.
-    lifted = (f"N={n}, a spawn tick with the wheels lifted away (hull centres only)",
-              (sp.track, sp.cars.replace(wheel_c=sp.cars.wheel_c + 1000.0),
-               sp.cars.hull_origin, sp.visited, sp.tile_touched, n))
+    sp = spawn_batch(cfg, envs, n, state.steps.device)
+    base = (sp.track, sp.cars, sp.cars.hull_origin, sp.visited, sp.tile_touched, n)
+    lifted = (sp.track, sp.cars.replace(wheel_c=sp.cars.wheel_c + 1000.0)) + base[2:]
+    return [stepped, (f"N={n}, a spawn tick", base),
+            (f"N={n}, a spawn tick with the wheels lifted away (hull centres only)", lifted)] + [
+        (f"N={n}, {name}", (sp.track, cars, post, visited, touched, n))
+        for name, (cars, post, visited, touched) in track_cases.cull_cases(sp.track, n).items()]
+
+
+def track_phase(cfg, actions, envs: int = E) -> dict:
+    """K4/K5 against the plain track pass on track_inputs: the track bars,
+    two launches bit-identical, and every tile the plain pass marks kept by
+    the cull's plain predicate (track_engine.track_candidates). Then, on
+    track_cases.cull_probes (the spawn tick's tracks with their centreline
+    points moved off the quads), K4/K5 against
+    track_engine.track_pass_culled_plain under the same bars, where that
+    differs from the full plain pass: the kernel's cull radii are the plain
+    predicate's."""
+    n = cfg.num_agents
     results = {}
-    for label, args in (stepped, spawn, lifted):
+    inputs = track_inputs(cfg, actions, envs)
+    for i, (label, args) in enumerate(inputs):
         k = track_engine.track_pass(*args)
         k2 = track_engine.track_pass(*args)
         p = track_engine.track_pass_plain(*args)
+        cand = track_engine.track_candidates(*args[:3])
+        missed = int((track_engine.plain_marks(*args[:3]) & ~cand).sum())
         torch.cuda.synchronize()
         r = compare_track(k, p, args[0], label)
         same = all(torch.equal(a, b) for a, b in zip(k, k2))
-        phase(f"{label}: two launches bit-identical: {same}")
+        per_car = cand.sum(-1)
+        r.update(cand_mean=float(per_car.float().mean()), cand_max=int(per_car.max()),
+                 marked_culled=missed)
+        phase(f"{label}: two launches bit-identical: {same}; candidates per car mean "
+              f"{r['cand_mean']:.4f}, max {r['cand_max']}; marked tiles outside the "
+              f"candidates {missed}")
         if not same:
             raise AssertionError(f"{label}: two K4/K5 launches on one input differ")
-        if args is lifted[1]:
-            if r["new_tiles"] or r["touched"] < E:
+        if missed:
+            raise AssertionError(f"{label}: the cull drops {missed} tiles the plain pass marks")
+        if i == 2:                                   # the lifted wheels
+            if r["new_tiles"] or r["touched"] < envs:
                 raise AssertionError(f"{label}: expected no new tile and a touched tile "
                                      f"under each env's hull centres")
-        elif r["gained"] == 0 or (n >= 2 and r["share"] == 0):
+        elif i < 2 and (r["gained"] == 0 or (n >= 2 and r["share"] == 0)):
             raise AssertionError(f"{label}: no env gained a tile"
                                  + ("" if n == 1 else " or no second-visitor share"))
+        elif i > 2 and "off-road" not in label and not bool(p[0].any()):
+            raise AssertionError(f"{label}: no wheel on the road")
+        results[label] = r
+    spawn_track = inputs[1][1][0]
+    for name, args in track_cases.cull_probes(spawn_track, n).items():
+        label, args = f"N={n}, {name}", args + (n,)
+        k = track_engine.track_pass(*args)
+        k2 = track_engine.track_pass(*args)
+        p = track_engine.track_pass_culled_plain(*args)
+        full = track_engine.track_pass_plain(*args)
+        torch.cuda.synchronize()
+        r = compare_track(k, p, args[0], f"{label} (vs the culled plain pass)")
+        same = all(torch.equal(a, b) for a, b in zip(k, k2))
+        dropped = {nm: int((a != b).sum()) for nm, a, b in zip(TRACK_NAMES, p, full)
+                   if not torch.equal(a, b)}
+        per_car = track_engine.track_candidates(*args[:3]).sum(-1)
+        r.update(cand_mean=float(per_car.float().mean()), cand_max=int(per_car.max()),
+                 dropped_by_cull=dropped)
+        phase(f"{label}: two launches bit-identical: {same}; candidates per car mean "
+              f"{r['cand_mean']:.4f}, max {r['cand_max']}; elements where the cull drops a "
+              f"mark (culled vs full plain pass) {dropped}")
+        if not same:
+            raise AssertionError(f"{label}: two K4/K5 launches on one input differ")
+        if not dropped:
+            raise AssertionError(f"{label}: the probe drops no mark, so it tests nothing")
         results[label] = r
     return results
 
@@ -1157,8 +1320,8 @@ def main() -> int:
         info = _cuda.build_info[name]
         phase(f"built {name} in {info['seconds']:.2f} s: " + " | ".join(info["ptxas"]))
     phase(f"all kernels loaded {time.perf_counter() - t0:.2f} s after the builds started")
-    ptx = {"K2": ptxas_table(fused_world.CONTACT_KERNEL),
-           "K3": ptxas_table(fused_world.SOLVE_KERNEL)}
+    ptx = {"K1": ptxas_table(fused_world.KERNEL), "K2": ptxas_table(fused_world.CONTACT_KERNEL),
+           "K3": ptxas_table(fused_world.SOLVE_KERNEL), "K4/K5": ptxas_table(track_engine.KERNEL)}
     phase("registers and spills: " + "; ".join(
         f"{k} {fn}: {v.get('registers')} registers, {v.get('spill_stores')} B spill stores, "
         f"{v.get('spill_loads')} B spill loads" for k, t in ptx.items() for fn, v in t.items()))
@@ -1184,6 +1347,11 @@ def main() -> int:
     phase(f"skid flags differing: {skid_miss}")
     if skid_miss > E // 1000:       # a threshold flag; 1-ulp force noise may flip it
         raise AssertionError(f"kernel vs plain: {skid_miss} skid flags differ")
+    fin1, ls1 = fused_world.pack_inputs(pre, state.wheel_on_road)
+    k1_phase3_ms = graph_ms(lambda: fused_world.launch(fin1, ls1, E), KERNEL_TIMING_LAUNCHES)
+    phase(f"K1 on this input {k1_phase3_ms:.5f} ms/launch (CUDA graph of "
+          f"{KERNEL_TIMING_LAUNCHES} launches); "
+          f"{ptx['K1'].get('joints_island', {}).get('registers')} registers")
 
     phase(f"4/19 small input: {len(SMALL_SEEDS)} envs x {SMALL_STEPS} steps, card vs CPU")
     small = {d: penv.reset_batch(cfg, SMALL_SEEDS, len(SMALL_SEEDS), device=d)
@@ -1207,7 +1375,8 @@ def main() -> int:
     track1 = track_times(cfg, run1, actions)
     k1 = report(fused_world.KERNEL, "multi_car_racing_tpu_torch/csrc/joints_island.cu",
                 TPU_KERNEL, run1["launches"], max_abs_err, max_err_over_bar, times1,
-                variant="force_no_contacts=True", fuel_spent_abs_err=devs["fuel_spent"][0])
+                variant="force_no_contacts=True", fuel_spent_abs_err=devs["fuel_spent"][0],
+                phase3_ms=k1_phase3_ms, ptxas=ptx["K1"])
 
     cfg2 = EnvConfig(num_agents=2, use_random_direction=False)
     actions2 = cycled_actions(E, cfg2.num_agents, dev)
@@ -1240,6 +1409,10 @@ def main() -> int:
           f"{live_max}")
     far_checks = {"phase 6": far_pass_check(pre, state.wheel_on_road, cs_pre, 2,
                                             "far pass on phase 6's input")}
+    k2_phase6 = k2_time_and_bound(pre, state.wheel_on_road, cs_pre, 2)
+    phase(f"K2 on this input {k2_phase6['ms']:.5f} ms/launch (CUDA graph); far pass "
+          f"{ptx['K2'].get('far_pass', {}).get('registers')} registers, near pass "
+          f"{ptx['K2'].get('near_pass', {}).get('registers')}")
     # The all-far input: phase 6's cars with car 1 of every env moved away.
     far_in = (move_car1(pre, torch.tensor([ALL_FAR_SHIFT, 0.0], device=dev).expand(E, 2)),
               state.wheel_on_road, cs_pre)
@@ -1402,7 +1575,7 @@ def main() -> int:
                 variant="full contact", near_share=float(near.float().mean()),
                 live_envs=k_live_envs,
                 id_miss_envs=id_miss, ram_max_normal_imp=ram_imp,
-                launches_per_call="2 (far pass, then near pass)",
+                launches_per_call="2 (far pass, then near pass)", phase6_ms=k2_phase6["ms"],
                 live_rows_per_near_env={"mean": live_mean, "max": live_max},
                 far_pass_checks=far_checks,
                 **{f"{k.replace('-', '_')}_{f}": v[f] for k, v in extra2.items()
@@ -1414,15 +1587,20 @@ def main() -> int:
                                                       for _, rv, rs in devs_pile.values())},
                 ptxas=ptx["K2"])
 
-    phase(f"14/19 K4/K5 vs plain at E={E}, N=1 and N=2: a stepped state and a spawn tick")
-    checks = {**track_phase(cfg, actions), **track_phase(cfg2, actions2)}
+    phase(f"14/19 K4/K5 vs plain at E={E}, N=1 and N=2, and E={N4_E}, N=4: a stepped state, "
+          f"a spawn tick, lifted wheels, and the cull's edges (on-road, seam, kerb, off-road, "
+          f"self-approach, wheels-only); the cull's probes (wheels only, origins only)")
+    checks = {**track_phase(cfg, actions), **track_phase(cfg2, actions2),
+              **track_phase(cfg4, actions4, N4_E)}
     worst = max(r["bonus_err"] for r in checks.values())
     k45 = report(track_engine.KERNEL, "multi_car_racing_tpu_torch/csrc/track_pass.cu",
                  TRACK_TPU_KERNEL, run2["track_launches"], worst, worst / BONUS_TOL, track2,
                  variant="v1 and v2 (one kernel)", also_replaces=TRACK_TPU_KERNEL_V2,
                  main_path="N=2", launches_n1=run1["track_launches"],
                  **{f"{k}_n1": v for k, v in track1.items()},
-                 checks={k: {"gained": r["gained"], "second_visitor_shares": r["share"]}
+                 ptxas=ptx["K4/K5"],
+                 checks={k: {"gained": r["gained"], "second_visitor_shares": r["share"],
+                             "cand_mean": r["cand_mean"], "cand_max": r["cand_max"]}
                          for k, r in checks.items()})
 
     phase(f"15/19 state-PPO rollout: E={E}, N={ROLLOUT_N}, pool of {len(POOL_SEEDS)} host "

@@ -1,36 +1,55 @@
 #!/usr/bin/env python3
-"""Hold this checkout's contact kernels against another version's, on one
-NVIDIA card.
+"""Hold this checkout's kernels against another version's, on one NVIDIA card.
 
     python3 compare_parent.py kernels PARENT_DIR
     python3 compare_parent.py variants CSRC_DIR [CSRC_DIR ...]
     python3 compare_parent.py e2e PARENT_DIR
 
-PARENT_DIR is an unpacked checkout of another commit (``git archive``),
-usually the parent; CSRC_DIR a copy of ``multi_car_racing_tpu_torch/csrc``
-with a change in it.
+PARENT_DIR is an unpacked checkout of the parent commit (``git archive``),
+whose kernels are launched with the parent's arguments (``PARENT_ARGTYPES``);
+CSRC_DIR a copy of this checkout's ``multi_car_racing_tpu_torch/csrc`` with
+a change in it.
 
-- ``kernels``: builds the contact kernels K2 (``contact_island.cu``) and K3
-  (``solve_island.cu``) from PARENT_DIR's sources beside this checkout's and,
-  on each input below, checks that they give the same bytes, that two
-  launches of this checkout's give the same bytes, that every far env's cars
-  out of K2 are byte-equal to the same cars through K1, and reads K2's near
-  count against ``near_flags``; then times both versions in turns (parent,
-  this, this, parent; CUDA events over 50 launches).
-- ``variants``: the same checks and times for K2 and K3 built from each
+- ``kernels``: builds K1 (``joints_island.cu``), K2 (``contact_island.cu``),
+  K3 (``solve_island.cu``) and K4/K5 (``track_pass.cu``) from PARENT_DIR's
+  sources beside this checkout's, one nvcc each, started together, then
+  - K1, on phase 3's input (N = 1 after 20 driven steps) and on the
+    all-far cars: the same bytes as the parent's, two launches identical;
+    its time, and its time with 0/0 and 180/0 velocity/position iterations
+    (the tire model, warm start and integration; the velocity loop), and the
+    share of 32-car warps whose cars differ in a joint's limit state;
+  - K2 and K3, on the seven inputs below: the same bytes as the parent's,
+    two launches identical, every far env's cars out of K2 byte-equal to
+    the same cars through K1, K2's near count against ``near_flags``;
+  - K4/K5, at N = 1 and N = 2 on chip_smoke.py's phase-14 inputs and the
+    main path's last, and on the N = 2 spawn tick's first 1024 and 256
+    envs: each version against the plain track pass under the
+    track bars (masks, counts, nearest_beta equal; bonus within 2e-5), its
+    bytes against the parent's (reported), two launches identical, the
+    candidates per car of ``track_engine.track_candidates``;
+  and times every kernel in turns (parent, this, this, parent), K4/K5 also
+  with a 128 MiB read before each launch (``chip_smoke.cold_graph_ms``),
+  so that its tables come from memory as on the main path. It also
+  checks, in one launch, that sincosf gives sinf's and cosf's bits on every
+  finite float with |x| <= 2^10 (car_chain.cuh takes one sincosf for the
+  hull angle's pair).
+- ``variants``: the same checks and times for the kernels built from each
   CSRC_DIR, bytes held against the first.
-- ``e2e``: runs the N = 2 paths of each checkout's own ``chip_smoke.py`` in
-  turns (parent, this, this, parent, parent, this), one process each: three
-  100-step windows of the N = 2 main path, the state-PPO rollout, the pixel
-  main path and the pixel-PPO env side.
+- ``e2e``: runs the N = 1 and N = 2 paths of each checkout's own
+  ``chip_smoke.py`` in turns (parent, this, this, parent, parent, this),
+  one process each: three 100-step windows of the N = 1 and of the N = 2
+  main path, the state-PPO rollout, the pixel main path and the pixel-PPO
+  env side.
 
-The inputs (E = 4096, N = 2 unless named): chip_smoke.py's phase 6 state;
-the N = 2 main path's last; all-far (phase 6's cars, car 1 of every env
-moved 500 m); the N = 2 spawn tick; all-near (the spawn tick, car 1 pulled
-to 2.7 m of car 0); N = 4 at E = 1024 driven until 10% of envs are near;
-the N = 4 rear-end ram (E = 1). Prints one line per input and writes the
-whole report to ``multi_car_racing_tpu_torch/_build/compare/compare_<mode>.json``.
-Imports nothing of JAX.
+The K2/K3 inputs (E = 4096, N = 2 unless named): chip_smoke.py's phase 6
+state; the N = 2 main path's last; all-far (phase 6's cars, car 1 of every
+env moved 500 m); the N = 2 spawn tick; all-near (the spawn tick, car 1
+pulled to 2.7 m of car 0); N = 4 at E = 1024 driven until 10% of envs are
+near; the N = 4 rear-end ram (E = 1). Kernel times are device time per
+launch: 50 launches captured in a CUDA graph (chip_smoke.graph_ms). Prints
+one line per input and writes the whole report to
+``multi_car_racing_tpu_torch/_build/compare/compare_<mode>.json``. Imports
+nothing of JAX.
 """
 
 from __future__ import annotations
@@ -50,42 +69,67 @@ import torch  # noqa: E402
 
 import chip_smoke as cs  # noqa: E402
 from multi_car_racing_tpu_torch import EnvConfig, _cuda, env as penv  # noqa: E402
-from multi_car_racing_tpu_torch.physics import fused_world as fw  # noqa: E402
+from multi_car_racing_tpu_torch.physics import fused_world as fw, track_engine as te  # noqa: E402
 from multi_car_racing_tpu_torch.physics.collide import ContactState  # noqa: E402
 from multi_car_racing_tpu_torch.physics.state import apply_controls  # noqa: E402
+from multi_car_racing_tpu_torch.util import tree_map  # noqa: E402
 
 REPS = 50
+SCALE_ENVS = (1024, 256)
 BUILD = os.path.join(ROOT, "multi_car_racing_tpu_torch", "_build", "compare")
-VP, CI = ctypes.c_void_p, ctypes.c_int
+KERNELS = ("joints_island", "contact_island", "solve_island", "track_pass")
+VP, CI, CF = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
-def build(tag: str, src_dir: str, name: str):
+# Each launch function's arguments, in this checkout and in its parent
+# (bbff43e), where K4/K5 took no cull radii. Only these two are kept: a
+# comparison with an older commit needs that commit's compare_parent.py.
+ARGTYPES = {
+    "joints_island": [VP] * 5 + [CI] * 3 + [VP],
+    "contact_island": [VP] * 15 + [CI] * 7 + [VP],
+    "solve_island": [VP] * 15 + [CI] * 7 + [VP],
+    "track_pass": [VP] * 20 + [CI] * 3 + [CF] * 6 + [VP],
+}
+PARENT_ARGTYPES = dict(ARGTYPES, track_pass=[VP] * 20 + [CI] * 3 + [CF] * 3 + [VP])
+
+
+def build(tag: str, src_dir: str, name: str, argtypes: dict):
     """csrc/<name>.cu of ``src_dir`` built with this checkout's nvcc flags:
-    (the launch function, typed; the ptxas lines)."""
+    (the launch function, typed by ``argtypes``; the ptxas lines)."""
     os.makedirs(BUILD, exist_ok=True)
     out = os.path.join(BUILD, f"{tag}_{name}.so")
-    cmd = [_cuda.nvcc_path(), *_cuda.NVCC_FLAGS, "-o", out, os.path.join(src_dir, f"{name}.cu")]
+    src = os.path.join(src_dir, f"{name}.cu")
+    cmd = [_cuda.nvcc_path(), *_cuda.NVCC_FLAGS, "-o", out, src]
     proc = subprocess.run(cmd, capture_output=True, text=True, timeout=_cuda.NVCC_TIMEOUT_S)
     if proc.returncode:
-        raise RuntimeError(f"nvcc failed on {src_dir}/{name}.cu:\n{proc.stderr}")
+        raise RuntimeError(f"nvcc failed on {src}:\n{proc.stderr}")
     fn = getattr(ctypes.CDLL(out), f"{name}_launch")
-    with open(os.path.join(src_dir, f"{name}.cu")) as f:
-        # K2 takes the near list and its count from the two-launch design on.
-        listed = name == "contact_island" and "near_count" in f.read()
-    fn.argtypes = [VP] * (15 if name == "solve_island" or listed else 13) + [CI] * 7 + [VP]
-    fn.restype = CI
-    return fn, listed, _cuda._ptxas_summary(proc.stderr)
+    fn.argtypes, fn.restype = argtypes[name], CI
+    return fn, _cuda._ptxas_summary(proc.stderr)
 
 
 class Version:
-    """K2 and K3 of one source directory, launched on packed inputs."""
+    """K1, K2, K3 and K4/K5 of one source directory, launched on packed
+    inputs; ``parent`` for the parent's launch arguments."""
 
-    def __init__(self, tag: str, src_dir: str):
-        with ThreadPoolExecutor(2) as ex:
-            k2, k3 = ex.map(lambda n: build(tag, src_dir, n), ("contact_island", "solve_island"))
-        self.tag, (self.k2, self.listed, p2), (self.k3, _, p3) = tag, k2, k3
-        self.ptxas = {"contact_island": p2, "solve_island": p3}
-        self.near_count = None
+    def __init__(self, tag: str, src_dir: str, parent: bool = False):
+        types = PARENT_ARGTYPES if parent else ARGTYPES
+        with ThreadPoolExecutor(len(KERNELS)) as ex:
+            built = dict(zip(KERNELS, ex.map(lambda n: build(tag, src_dir, n, types), KERNELS)))
+        self.tag, self.culled = tag, not parent
+        self.k1, self.k2, self.k3, self.k45 = (built[n][0] for n in KERNELS)
+        self.ptxas = {n: b[1] for n, b in built.items()}
+        self.near_count = self.near_list = None
+
+    def joints(self, fin, ls_in, vel: int = 180, pos: int = 60):
+        fout = torch.empty((fw.OUT_ROWS["N_OUT"], fin.shape[1]), device=fin.device)
+        ls_out = torch.empty((4, fin.shape[1]), dtype=torch.int32, device=fin.device)
+        rc = self.k1(fin.data_ptr(), ls_in.data_ptr(), fout.data_ptr(), ls_out.data_ptr(),
+                     fw._params(fin.device).data_ptr(), fin.shape[1], vel, pos,
+                     torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise RuntimeError(f"{self.tag} joints_island launch failed ({rc})")
+        return fout, ls_out
 
     def contact(self, fin, ls_in, cst, n):
         dev = fin.device
@@ -94,16 +138,14 @@ class Version:
         ls_out = torch.empty((4, fin.shape[1]), dtype=torch.int32, device=dev)
         ni, ti = torch.empty_like(cst.normal_imp), torch.empty_like(cst.tangent_imp)
         ids = torch.empty_like(cst.ids)
-        lists = []
-        if self.listed:
-            self.near_count = torch.empty(1, dtype=torch.int32, device=dev)
-            lists = [torch.empty(envs, dtype=torch.int32, device=dev).data_ptr(),
-                     self.near_count.data_ptr()]
+        self.near_count = torch.empty(1, dtype=torch.int32, device=dev)
+        self.near_list = torch.empty(envs, dtype=torch.int32, device=dev)
         ctab, itab = fw._contact_tables(dev, n)
         rc = self.k2(fin.data_ptr(), ls_in.data_ptr(), cst.normal_imp.data_ptr(),
                      cst.tangent_imp.data_ptr(), cst.ids.data_ptr(), fout.data_ptr(),
                      ls_out.data_ptr(), ni.data_ptr(), ti.data_ptr(), ids.data_ptr(),
-                     fw._params(dev).data_ptr(), ctab.data_ptr(), itab.data_ptr(), *lists,
+                     fw._params(dev).data_ptr(), ctab.data_ptr(), itab.data_ptr(),
+                     self.near_list.data_ptr(), self.near_count.data_ptr(),
                      envs, n, mm, 180, 60, 180, 60, torch.cuda.current_stream().cuda_stream)
         if rc:
             raise RuntimeError(f"{self.tag} contact_island launch failed ({rc})")
@@ -128,6 +170,28 @@ class Version:
             raise RuntimeError(f"{self.tag} solve_island launch failed ({rc})")
         return fout, ls_out, ni, ti
 
+    def track(self, track, wheels, origins, visited, touched):
+        E, N, MT = visited.shape
+        dev = visited.device
+        out = [torch.empty((E, N, 4), dtype=torch.bool, device=dev),
+               torch.empty((E, N, MT), dtype=torch.bool, device=dev),
+               torch.empty((E, N), device=dev),
+               torch.empty((E, N), dtype=torch.int32, device=dev),
+               torch.empty((E, MT), dtype=torch.bool, device=dev),
+               torch.empty((E, N), device=dev),
+               torch.empty((E, N), dtype=torch.bool, device=dev)]
+        ptrs = [x.data_ptr() for x in (
+            track.quad_T, track.quad_ax_T, track.quad_lo, track.quad_hi, track.curb_quad_T,
+            track.xy, track.beta, track.valid, track.n_tiles, wheels, origins, visited,
+            touched, *out)]
+        radii = (te.REACH_BASE, te.WHEEL_CULL_EXTRA, te.ORIGIN_CULL_EXTRA) if self.culled else ()
+        rc = self.k45(*ptrs, E, N, MT, te.overlap.WHEEL_HX, te.overlap.WHEEL_HY,
+                      te.C.SENSOR_OVERLAP_MARGIN, *radii,
+                      torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise RuntimeError(f"{self.tag} track_pass launch failed ({rc})")
+        return out
+
 
 def drive_until_near(n: int, envs: int, dev):
     """chip_smoke.py phase 6's drive: until NEAR_SHARE of envs are near."""
@@ -143,27 +207,65 @@ def drive_until_near(n: int, envs: int, dev):
     return pre, state.wheel_on_road, state.contacts
 
 
+def main_path_last(n: int, dev):
+    """The state after the N = n main path's reset and WARMUP + T steps, and
+    the next step's pre-solve cars."""
+    cfg = EnvConfig(num_agents=n, use_random_direction=False)
+    acts = cs.cycled_actions(cs.E, n, dev)
+    state = penv.reset_batch(cfg, cs.SEEDS, cs.E)
+    for t in range(cs.WARMUP + cs.T):
+        state, _, _ = penv.step(cfg, state, acts[t % 8])
+    return state, apply_controls(state.cars, acts[(cs.WARMUP + cs.T) % 8])
+
+
 def inputs(dev) -> dict:
     """name -> ((pre-solve cars, wheel_on_road, contacts), cars per env)."""
     cfg2 = EnvConfig(num_agents=2, use_random_direction=False)
     in6 = drive_until_near(2, cs.E, dev)
-    acts = cs.cycled_actions(cs.E, 2, dev)
-    state = penv.reset_batch(cfg2, cs.SEEDS, cs.E)
-    for t in range(cs.WARMUP + cs.T):
-        state, _, _ = penv.step(cfg2, state, acts[t % 8])
-    last = (apply_controls(state.cars, acts[(cs.WARMUP + cs.T) % 8]), state.wheel_on_road,
-            state.contacts)
+    state, pre = main_path_last(2, dev)
     far = torch.tensor([cs.ALL_FAR_SHIFT, 0.0], device=dev).expand(cs.E, 2)
     sp = cs.spawn_batch(cfg2, cs.E, 2, dev)
     pull = -cs.ALL_NEAR_PULL * (sp.cars.hull_c[:, 1] - sp.cars.hull_c[:, 0])
     _, ram, ram_act, _ = cs.ram_state(dev)
-    return {"phase 6": (in6, 2), "main path's last": (last, 2),
+    return {"phase 6": (in6, 2), "main path's last": ((pre, state.wheel_on_road, state.contacts), 2),
             "all-far": ((cs.move_car1(in6[0], far),) + in6[1:], 2),
             "spawn tick": ((sp.cars, sp.wheel_on_road, sp.contacts), 2),
             "all-near": ((cs.move_car1(sp.cars, pull), sp.wheel_on_road, sp.contacts), 2),
             f"N=4, E={cs.N4_E}": (drive_until_near(4, cs.N4_E, dev), 4),
             "ram (N=4, E=1)": ((apply_controls(ram.cars, ram_act), ram.wheel_on_road,
                                 ram.contacts), 4)}
+
+
+def k1_inputs(dev, contact_inputs: dict) -> dict:
+    """name -> (pre-solve cars, wheel_on_road): phase 3's (N = 1, 20 driven
+    steps, the next action) and the all-far cars."""
+    cfg = EnvConfig(num_agents=1, use_random_direction=False)
+    acts = cs.cycled_actions(cs.E, 1, dev)
+    state = penv.reset_batch(cfg, cs.SEEDS, cs.E)
+    for t in range(20):
+        state, _, _ = penv.step(cfg, state, acts[t % 8])
+    return {"phase 3": (apply_controls(state.cars, acts[20 % 8]), state.wheel_on_road),
+            "all-far cars": contact_inputs["all-far"][0][:2]}
+
+
+def track_inputs(dev) -> dict:
+    """name -> the track pass's arguments: chip_smoke.py's phase-14 inputs
+    and the main path's last, at N = 1 and N = 2; and the N = 2 spawn tick's
+    first SCALE_ENVS envs (the time of one warp's chain against E = 4096's)."""
+    out = {}
+    for n in (1, 2):
+        cfg = EnvConfig(num_agents=n, use_random_direction=False)
+        out.update(cs.track_inputs(cfg, cs.cycled_actions(cs.E, n, dev)))
+        state, pre = main_path_last(n, dev)
+        post, _, _ = fw.island_step(pre, state.wheel_on_road, state.contacts)
+        out[f"N={n}, the main path's last"] = (state.track, pre, post.hull_origin,
+                                               state.visited, state.tile_touched, n)
+    spawn = out["N=2, a spawn tick"]
+    for envs in SCALE_ENVS:
+        out[f"N=2, a spawn tick, E={envs}"] = tuple(
+            tree_map(lambda x: x[:envs].contiguous(), a) if i < 2 else
+            a[:envs].contiguous() if i < 5 else a for i, a in enumerate(spawn))
+    return out
 
 
 def same(a, b) -> bool:
@@ -176,18 +278,51 @@ def differing(a, b) -> list:
             for x, y in zip(a, b)]
 
 
-def compare_versions(versions: list, dev) -> dict:
-    """The checks and times of ``kernels`` / ``variants``; bytes against
-    versions[0], times in turns."""
+def mixed_warps(ls) -> list:
+    """Per joint: the share of 32-car warps whose cars differ in limit state."""
+    w = ls[:, :ls.shape[1] // 32 * 32].reshape(4, -1, 32)
+    return [float((w[k] != w[k][:, :1]).any(1).float().mean()) for k in range(4)]
+
+
+def in_turns(versions, res: dict, key: str, fn, timer=cs.graph_ms) -> None:
+    """Times fn(version) with ``timer`` for each version, in turns (first to
+    last, then last to first), appended under res[tag][key]."""
+    for order in (versions, versions[::-1]):
+        for v in order:
+            res[v.tag].setdefault(key, []).append(timer(lambda: fn(v), REPS))
+
+
+def compare_k1(versions: list, dev, contact_inputs: dict) -> dict:
     res = {}
-    for name, ((cars, road, cst), n) in inputs(dev).items():
+    for name, (cars, road) in k1_inputs(dev, contact_inputs).items():
+        fin, ls_in = fw.pack_inputs(cars, road)
+        ref = versions[0].joints(fin, ls_in)
+        r = {"cars": fin.shape[1], "mixed_warp_share_per_joint": mixed_warps(ref[1]),
+             "limit_share_per_joint": [float((ref[1][k] != 0).float().mean())
+                                       for k in range(4)]}
+        for v in versions:
+            a, b = v.joints(fin, ls_in), v.joints(fin, ls_in)
+            torch.cuda.synchronize()
+            r[v.tag] = {"equal": same(ref, a), "two_launches_identical": same(a, b)}
+            if not r[v.tag]["equal"]:
+                r[v.tag]["differing"] = differing(ref, a)
+        in_turns(versions, r, "ms", lambda v: v.joints(fin, ls_in))
+        in_turns(versions, r, "ms_0_0", lambda v: v.joints(fin, ls_in, 0, 0))
+        in_turns(versions, r, "ms_180_0", lambda v: v.joints(fin, ls_in, 180, 0))
+        print(f"K1 {name}: {json.dumps(r)}", flush=True)
+        res[name] = r
+    return res
+
+
+def compare_contact(versions: list, dev, contact_inputs: dict) -> dict:
+    res = {}
+    for name, ((cars, road, cst), n) in contact_inputs.items():
         fin, ls_in = fw.pack_inputs(cars, road)
         cst = ContactState(cst.normal_imp.contiguous(), cst.tangent_imp.contiguous(),
                            cst.ids.contiguous())
         post, force, motor, bundle = cs.solve_inputs(cars, road, cst, n)[:4]
         fin3, ls3 = fw.pack_solve_inputs(post, force, motor)
         near = fw.near_flags(cars)
-        reps = REPS if fin.shape[1] > 64 else 5
         ref2, ref3 = versions[0].contact(fin, ls_in, cst, n), versions[0].solve(fin3, ls3,
                                                                               bundle, n)
         k1, k1_ls = fw.launch(fin, ls_in, fin.shape[1])
@@ -204,21 +339,95 @@ def compare_versions(versions: list, dev) -> dict:
                 out["k2_differing"] = differing(ref2, a2)
             if not out["k3_equal"]:
                 out["k3_differing"] = differing(ref3, a3)
-            if v.listed:
-                out["near_count"] = int(v.near_count)
-                out["far_equal_k1"] = (torch.equal(a2[0][:, far], k1[:, far])
-                                       and torch.equal(a2[1][:, far], k1_ls[:, far]))
+            out["near_count"] = int(v.near_count)
+            out["far_equal_k1"] = (torch.equal(a2[0][:, far], k1[:, far])
+                                   and torch.equal(a2[1][:, far], k1_ls[:, far]))
             r[v.tag] = out
-        for order in (versions, versions[::-1]):
-            for v in order:
-                r[v.tag].setdefault("k2_ms", []).append(
-                    cs.cuda_ms(lambda: v.contact(fin, ls_in, cst, n), reps))
-                r[v.tag].setdefault("k3_ms", []).append(
-                    cs.cuda_ms(lambda: v.solve(fin3, ls3, bundle, n), reps))
-        r["k1_ms_same_cars"] = cs.cuda_ms(lambda: fw.launch(fin, ls_in, fin.shape[1]), reps)
+        in_turns(versions, r, "k2_ms", lambda v: v.contact(fin, ls_in, cst, n))
+        in_turns(versions, r, "k3_ms", lambda v: v.solve(fin3, ls3, bundle, n))
         print(f"{name}: {json.dumps(r)}", flush=True)
         res[name] = r
     return res
+
+
+def compare_track(versions: list, dev) -> dict:
+    res = {}
+    for name, args in track_inputs(dev).items():
+        wheels, origins = te.pack_cars(args[1], args[2])
+        plain = te.track_pass_plain(*args)
+        per_car = te.track_candidates(*args[:3]).sum(-1)
+        run = (args[0], wheels, origins, args[3], args[4])
+        ref = versions[0].track(*run)
+        r = {"cand_mean": float(per_car.float().mean()), "cand_max": int(per_car.max())}
+        for v in versions:
+            a, b = v.track(*run), v.track(*run)
+            torch.cuda.synchronize()
+            out = {"unequal_to_plain": [nm for nm, x, y in zip(te.OUTPUT_NAMES, a, plain)
+                                        if nm != "bonus" and not torch.equal(x, y)],
+                   "bonus_err": float((a[2] - plain[2]).abs().max()),
+                   "bytes_differ_from_first": [nm for nm, x, y in zip(te.OUTPUT_NAMES, a, ref)
+                                               if not torch.equal(x, y)],
+                   "two_launches_identical": same(a, b)}
+            out["within_bars"] = (not out["unequal_to_plain"]
+                                  and out["bonus_err"] <= cs.BONUS_TOL)
+            r[v.tag] = out
+        in_turns(versions, r, "ms", lambda v: v.track(*run))
+        in_turns(versions, r, "ms_after_l2_flush", lambda v: v.track(*run),
+                 lambda fn, reps: cs.cold_graph_ms(fn, reps)[0])
+        print(f"K4/K5 {name}: {json.dumps(r)}", flush=True)
+        res[name] = r
+    return res
+
+
+# sincosf against sinf and cosf, bit for bit, on every finite float with
+# |x| <= 2^10 (both signs; 2,298,478,594 values), in one launch. The asm move
+# hides x from the compiler so that sinf(x) and cosf(x) keep their own range
+# reductions, as car_chain.cuh's parent evaluated them.
+SINCOS_CU = r"""
+#include <cuda_runtime.h>
+__global__ void sincos_kernel(unsigned long long* bad, unsigned long long half) {
+  const unsigned long long step = 1ull * gridDim.x * blockDim.x;
+  for (unsigned long long i = 1ull * blockIdx.x * blockDim.x + threadIdx.x; i < 2 * half;
+       i += step) {
+    const unsigned b = static_cast<unsigned>(i % half) | (i >= half ? 0x80000000u : 0u);
+    const float x = __uint_as_float(b);
+    float y;
+    asm volatile("mov.b32 %0, %1;" : "=f"(y) : "f"(x));
+    float s, c;
+    sincosf(x, &s, &c);
+    if (__float_as_uint(s) != __float_as_uint(sinf(x)) ||
+        __float_as_uint(c) != __float_as_uint(cosf(y)))
+      atomicAdd(bad, 1ull);
+  }
+}
+extern "C" int sincos_check(unsigned long long* bad, void* stream) {
+  const unsigned long long half = 0x44800000ull + 1;   // +0 ... 2^10, by bit pattern
+  sincos_kernel<<<132 * 16, 256, 0, static_cast<cudaStream_t>(stream)>>>(bad, half);
+  return static_cast<int>(cudaGetLastError());
+}
+"""
+
+
+def sincos_check(dev) -> int:
+    """The floats with |x| <= 2^10 on which sincosf differs from sinf or
+    cosf in any bit (0 where car_chain.cuh may use it)."""
+    os.makedirs(BUILD, exist_ok=True)
+    src, out = os.path.join(BUILD, "sincos_check.cu"), os.path.join(BUILD, "sincos_check.so")
+    with open(src, "w") as f:
+        f.write(SINCOS_CU)
+    proc = subprocess.run([_cuda.nvcc_path(), *_cuda.NVCC_FLAGS, "-o", out, src],
+                          capture_output=True, text=True, timeout=_cuda.NVCC_TIMEOUT_S)
+    if proc.returncode:
+        raise RuntimeError(f"nvcc failed on the sincos check:\n{proc.stderr}")
+    fn = ctypes.CDLL(out).sincos_check
+    fn.argtypes, fn.restype = [VP, VP], CI
+    bad = torch.zeros(1, dtype=torch.int64, device=dev)
+    if fn(bad.data_ptr(), torch.cuda.current_stream().cuda_stream):
+        raise RuntimeError("sincos check launch failed")
+    mismatches = int(bad)
+    print(f"sincosf vs sinf/cosf on every finite float with |x| <= 2^10: {mismatches} "
+          f"mismatches", flush=True)
+    return mismatches
 
 
 E2E = """
@@ -230,9 +439,11 @@ from multi_car_racing_tpu_torch import EnvConfig, env as penv
 dev = torch.device("cuda")
 smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                      capture_output=True, text=True).stdout.strip()
-cfg = EnvConfig(num_agents=2, use_random_direction=False)
-acts = cs.cycled_actions(cs.E, 2, dev)
-out = {"n2_step_ms": [cs.main_path(cfg, acts, "N=2", smi)["step_ms"] for _ in range(3)]}
+out = {}
+for n in (1, 2):
+    cfg = EnvConfig(num_agents=n, use_random_direction=False)
+    acts = cs.cycled_actions(cs.E, n, dev)
+    out[f"n{n}_step_ms"] = [cs.main_path(cfg, acts, f"N={n}", smi)["step_ms"] for _ in range(3)]
 out["rollout_env_steps_per_s"] = cs.rollout_phase(smi, dev)["env_steps_per_s"]
 out["pixel_step_ms"] = cs.pixel_main_path(smi, dev)["step_ms"]
 pool = penv.make_track_pool(EnvConfig(num_agents=2), cs.POOL_SEEDS, device=dev)
@@ -278,11 +489,15 @@ def main() -> int:
                     ("this", os.path.join(ROOT, "multi_car_racing_tpu_torch", "csrc"))]
         else:
             srcs = [(os.path.basename(d.rstrip("/")) or d, d) for d in dirs]
-        versions = [Version(tag, src) for tag, src in srcs]
+        versions = [Version(tag, src, parent=tag == "parent") for tag, src in srcs]
         for v in versions:
             print(f"{v.tag} ptxas: " + json.dumps(v.ptxas), flush=True)
         report["ptxas"] = {v.tag: v.ptxas for v in versions}
-        report["inputs"] = compare_versions(versions, dev)
+        report["sincos_mismatches"] = sincos_check(dev)
+        contact_inputs = inputs(dev)
+        report["k1"] = compare_k1(versions, dev, contact_inputs)
+        report["inputs"] = compare_contact(versions, dev, contact_inputs)
+        report["track"] = compare_track(versions, dev)
     os.makedirs(BUILD, exist_ok=True)
     with open(os.path.join(BUILD, f"compare_{mode}.json"), "w") as f:
         json.dump(report, f, indent=1)

@@ -30,7 +30,8 @@ NVCC_FLAGS = (
 NVCC_TIMEOUT_S = 300
 
 _libs: dict[str, ctypes.CDLL] = {}
-# name -> {"seconds": float (0.0 when reused), "ptxas": [str], "path": str}
+# name -> {"seconds": float (0.0 when reused), "ptxas": [str] (the build's,
+# also when reused), "path": str}
 build_info: dict[str, dict] = {}
 
 
@@ -60,7 +61,10 @@ def load(name: str) -> ctypes.CDLL:
         h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     so = BUILD_DIR / f"{name}_{h.hexdigest()[:16]}.so"
+    ptxas = so.with_suffix(".ptxas")          # the build's ptxas lines, kept for reuse
     info = {"seconds": 0.0, "ptxas": [], "path": str(so)}
+    if so.exists() and ptxas.exists():
+        info["ptxas"] = ptxas.read_text().splitlines()
     if not so.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
@@ -77,9 +81,10 @@ def load(name: str) -> ctypes.CDLL:
             raise RuntimeError(
                 f"nvcc failed ({proc.returncode}) on {src}:\n{proc.stderr}"
             )
-        os.replace(tmp, so)
         info["seconds"] = time.perf_counter() - t0
         info["ptxas"] = _ptxas_summary(proc.stderr)
+        ptxas.write_text("\n".join(info["ptxas"]))
+        os.replace(tmp, so)
     lib = ctypes.CDLL(str(so))
     _libs[name] = lib
     build_info[name] = info

@@ -10,6 +10,18 @@
 // island_step_plain: fp32 throughout; precise sinf/cosf/sqrtf and division
 // (no fast math); sign(0) == 0; 1/det through a select, never a division that
 // is masked later.
+//
+// The chain is latency-bound: one car per thread, 240 dependent iterations,
+// one warp per scheduler (joints_island.cu). Two things keep it short and
+// keep every output bit of the branchy form it replaced (compare_parent.py
+// holds K1, K2 and K3 byte-equal to their parents'):
+// - joints_velocity and joints_position compute every limit-state path with
+//   its own arithmetic unchanged and select the result, so the paths run
+//   side by side on the chain and a warp whose cars differ in limit state
+//   (the steered front joints, in most warps) does not run them in turn;
+// - the hull angle's sine and cosine come from one sincosf, whose bits equal
+//   sinf's and cosf's on every finite float with |x| <= 2^10 (checked
+//   exhaustively on the card by compare_parent.py).
 
 #pragma once
 
@@ -208,7 +220,8 @@ __device__ __forceinline__ void joints_warm_start(Car& c, JointK& j, const float
   const float MA = p[P_MA], IA = p[P_IA], MB = p[P_MB], IB = p[P_IB];
   const float arm_x[4] = {p[P_ARM_X0], p[P_ARM_X1], p[P_ARM_X2], p[P_ARM_X3]};
   const float arm_y[4] = {p[P_ARM_Y0], p[P_ARM_Y1], p[P_ARM_Y2], p[P_ARM_Y3]};
-  const float sa = sinf(c.ha), ca = cosf(c.ha);
+  float sa, ca;
+  sincosf(c.ha, &sa, &ca);
 #pragma unroll
   for (int k = 0; k < 4; ++k) {
     j.rax[k] = ca * arm_x[k] - sa * arm_y[k];
@@ -259,30 +272,24 @@ __device__ __forceinline__ void joints_velocity(Car& c, const JointK& j, const f
 
     const float bx = c.wvx[k] - c.hvx + c.hw * j.ray[k];
     const float by = c.wvy[k] - c.hvy - c.hw * j.rax[k];
-    float imp_x, imp_y, imp_z;
-    if (c.ls[k] != 0) {
-      const float bz = c.ww[k] - c.hw;
-      const float iz = -j.inv_det[k] * (bx * j.cz3x[k] + by * j.cz3y[k] + bz * j.cz3z[k]);
-      const float new_z = c.jiz[k] + iz;
-      const bool clampdown = (c.ls[k] == 1 && new_z < 0.f) || (c.ls[k] == 2 && new_z > 0.f);
-      if (clampdown) {
-        const float rhs_x = -bx + c.jiz[k] * j.ezx[k];
-        const float rhs_y = -by + c.jiz[k] * j.ezy[k];
-        imp_x = j.inv22[k] * (j.k22[k] * rhs_x - j.k12[k] * rhs_y);
-        imp_y = j.inv22[k] * (j.k11[k] * rhs_y - j.k12[k] * rhs_x);
-        imp_z = -c.jiz[k];
-        c.jiz[k] = 0.f;
-      } else {
-        imp_x = -j.inv_det[k] * (bx * j.cx[k] + by * j.cy[k] + bz * j.cz[k]);
-        imp_y = -j.inv_det[k] * (bx * j.cy2x[k] + by * j.cy2y[k] + bz * j.cy2z[k]);
-        imp_z = iz;
-        c.jiz[k] = new_z;
-      }
-    } else {
-      imp_x = j.inv22[k] * (j.k22[k] * -bx - j.k12[k] * -by);
-      imp_y = j.inv22[k] * (j.k11[k] * -by - j.k12[k] * -bx);
-      imp_z = 0.f;
-    }
+    // Each limit-state path with its own arithmetic, then selects (above).
+    const bool lim = c.ls[k] != 0;
+    const float bz = c.ww[k] - c.hw;
+    const float iz = -j.inv_det[k] * (bx * j.cz3x[k] + by * j.cz3y[k] + bz * j.cz3z[k]);
+    const float new_z = c.jiz[k] + iz;
+    const bool clampdown = (c.ls[k] == 1 && new_z < 0.f) || (c.ls[k] == 2 && new_z > 0.f);
+    const float rhs_x = -bx + c.jiz[k] * j.ezx[k];
+    const float rhs_y = -by + c.jiz[k] * j.ezy[k];
+    const float cd_x = j.inv22[k] * (j.k22[k] * rhs_x - j.k12[k] * rhs_y);
+    const float cd_y = j.inv22[k] * (j.k11[k] * rhs_y - j.k12[k] * rhs_x);
+    const float fr_x = -j.inv_det[k] * (bx * j.cx[k] + by * j.cy[k] + bz * j.cz[k]);
+    const float fr_y = -j.inv_det[k] * (bx * j.cy2x[k] + by * j.cy2y[k] + bz * j.cy2z[k]);
+    const float pt_x = j.inv22[k] * (j.k22[k] * -bx - j.k12[k] * -by);
+    const float pt_y = j.inv22[k] * (j.k11[k] * -by - j.k12[k] * -bx);
+    const float imp_x = lim ? (clampdown ? cd_x : fr_x) : pt_x;
+    const float imp_y = lim ? (clampdown ? cd_y : fr_y) : pt_y;
+    const float imp_z = lim ? (clampdown ? -c.jiz[k] : iz) : 0.f;
+    c.jiz[k] = lim ? (clampdown ? 0.f : new_z) : c.jiz[k];
     c.jix[k] = c.jix[k] + imp_x;
     c.jiy[k] = c.jiy[k] + imp_y;
     c.hvx = c.hvx - MA * imp_x;
@@ -319,17 +326,15 @@ __device__ __forceinline__ void joints_position(Car& c, const float* p) {
 #pragma unroll
   for (int k = 0; k < 4; ++k) {
     const float angle = c.wa[k] - c.ha;
-    float c_lim = 0.f;
-    if (c.ls[k] == 1) {
-      c_lim = clampf(angle - p[P_LOWER] + p[P_ANG_SLOP], -p[P_MAX_ANG_CORR], 0.f);
-    } else if (c.ls[k] == 2) {
-      c_lim = clampf(angle - p[P_UPPER] - p[P_ANG_SLOP], 0.f, p[P_MAX_ANG_CORR]);
-    }
+    const float lo_lim = clampf(angle - p[P_LOWER] + p[P_ANG_SLOP], -p[P_MAX_ANG_CORR], 0.f);
+    const float hi_lim = clampf(angle - p[P_UPPER] - p[P_ANG_SLOP], 0.f, p[P_MAX_ANG_CORR]);
+    const float c_lim = c.ls[k] == 1 ? lo_lim : (c.ls[k] == 2 ? hi_lim : 0.f);
     const float li = -motor_mass * c_lim;
     c.ha = c.ha - IA * li;
     c.wa[k] = c.wa[k] + IB * li;
 
-    const float sp = sinf(c.ha), cp = cosf(c.ha);
+    float sp, cp;
+    sincosf(c.ha, &sp, &cp);
     const float rx = cp * arm_x[k] - sp * arm_y[k];
     const float ry = sp * arm_x[k] + cp * arm_y[k];
     const float cvx = c.wcx[k] - c.hcx - rx;

@@ -16,9 +16,10 @@
 // 67 TFLOP/s fp32 rate. The state read and written is ~550 bytes per car
 // (~2.3 MB at E=4096, under 1 us at 3.35 TB/s). So the bound is operations;
 // but each car's solve is a chain of 240 dependent iterations, and with one
-// car per thread 4096 threads cannot fill 132 SMs' issue slots, so the
-// latency of that chain, not throughput, sets the time: expect far above the
-// bound.
+// car per thread 4096 threads fill 128 warps of the card's 528 schedulers,
+// one warp each: nothing hides a dependent instruction's latency, and the
+// length of one car's chain sets the time, far above the bound: the
+// velocity and the position loop take nearly all of it.
 //
 // What the design does about it. Gauss-Seidel runs the four joints of a car
 // in order through the shared hull velocity, so one car is one thread: the
@@ -26,9 +27,14 @@
 // in registers for all 240 iterations, and the K-matrix terms that are fixed
 // over the velocity phase are computed once per step. Inputs and outputs are
 // struct-of-arrays rows of E*N floats, so neighbouring threads read
-// neighbouring cars (coalesced). Blocks of 64 threads give 64 blocks at
-// E=4096, fewer than the 132 SMs: the first thing a later tuning pass looks
-// at. fp32 throughout; precise sinf/cosf/sqrtf and division (no fast math).
+// neighbouring cars (coalesced). The chain is shortened without touching
+// its rounding (car_chain.cuh): each limit-state path of a joint is
+// computed and the result selected, so the paths overlap on the chain and
+// the steered front joints (mixed limit states in ~85% of warps) no longer
+// diverge; one sincosf gives the hull angle's pair in each position
+// iteration. Blocks of 32 threads (one warp per SM) measured the same as
+// blocks of 64. fp32 throughout; precise sincosf/sqrtf and division (no fast
+// math).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 // -Xcompiler -fPIC (multi_car_racing_tpu_torch/_cuda.py); plain C interface

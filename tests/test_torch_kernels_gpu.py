@@ -14,12 +14,14 @@ import pytest
 import torch
 
 from multi_car_racing_tpu_torch import EnvConfig, env as penv
-from multi_car_racing_tpu_torch.physics import collide, fused_world, tire, track_engine, world
+from multi_car_racing_tpu_torch.physics import collide, fused_world, tire, track_cases, track_engine
+from multi_car_racing_tpu_torch.physics import world
 from multi_car_racing_tpu_torch.physics.state import apply_controls
 from multi_car_racing_tpu_torch.render import pixels
 from multi_car_racing_tpu_torch.util import tree_map
 from test_torch_contact_compact import piled_cars
 from test_torch_paint_cull import jitter
+
 
 TOL = 5e-4
 STEP_FLOOR = 1e-3     # floor of the per-step-change scale
@@ -296,6 +298,67 @@ def test_track_kernel_matches_plain_on_card(num_envs, num_cars):
         else:
             assert torch.equal(a, b), name
     assert bool(p[0].any())          # some wheel on the road
+
+
+def _cull_track(num_cars: int):
+    """The 8 host tracks of seeds 0-7 tiled to 256 envs on the card."""
+    cfg = EnvConfig(num_agents=num_cars, use_random_direction=False)
+    pool = penv.make_track_pool(cfg, range(8), device="cuda")
+    idx = torch.arange(256, device="cuda") % 8
+    return tree_map(lambda x: x.index_select(0, idx), pool)
+
+
+def _assert_track_bars(k, p, k2, name):
+    for label, a, b, c in zip(track_engine.OUTPUT_NAMES, k, p, k2):
+        assert torch.equal(a, c), (name, label)
+        if label == "bonus":
+            assert float((a - b).abs().max()) <= 2e-5, (name, label)
+        else:
+            assert torch.equal(a, b), (name, label)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("num_cars", [1, 2, 4])
+def test_track_kernel_matches_plain_on_the_cull_edges(num_cars):
+    """K4/K5 against track_pass_plain on track_cases.cull_cases at 256 envs
+    (hull origins on the road and past the kerb, across the start seam, on
+    a kerb, 30 m off the road, where the loop comes nearest to itself;
+    wheels on the road with both origins 1 km away): the track bars, two
+    launches bit-identical, and every tile the plain pass marks kept by
+    track_engine.track_candidates."""
+    _need_card()
+    track = _cull_track(num_cars)
+    for name, (cars, post, visited, touched) in track_cases.cull_cases(track, num_cars).items():
+        args = (track, cars, post, visited, touched, num_cars)
+        k = track_engine.track_pass(*args)
+        k2 = track_engine.track_pass(*args)
+        p = track_engine.track_pass_plain(*args)
+        cand = track_engine.track_candidates(track, cars, post)
+        torch.cuda.synchronize()
+        assert not bool((track_engine.plain_marks(track, cars, post) & ~cand).any()), name
+        _assert_track_bars(k, p, k2, name)
+        assert name == "off-road" or bool(p[0].any()), name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("num_cars", [1, 2, 4])
+def test_track_kernel_cull_radii_are_the_plain_predicates(num_cars):
+    """On track_cases.cull_probes (centreline points moved off the quads,
+    so the cull drops marks), K4/K5 equals
+    track_engine.track_pass_culled_plain under the track bars, and that
+    differs from the full plain pass: the kernel's wheel and origin radii
+    are track_candidates' and post_candidates'."""
+    _need_card()
+    track = _cull_track(num_cars)
+    for name, args in track_cases.cull_probes(track, num_cars).items():
+        args = args + (num_cars,)
+        k = track_engine.track_pass(*args)
+        k2 = track_engine.track_pass(*args)
+        p = track_engine.track_pass_culled_plain(*args)
+        full = track_engine.track_pass_plain(*args)
+        torch.cuda.synchronize()
+        _assert_track_bars(k, p, k2, name)
+        assert not all(torch.equal(a, b) for a, b in zip(p, full)), name
 
 
 @pytest.mark.gpu

@@ -244,6 +244,7 @@ def test_kernel_source_keeps_precision_rules():
     code = "\n".join(ln.split("//")[0] for ln in src.splitlines())
     assert "copysign" not in code           # jnp.sign(0) == 0
     assert "__sinf" not in code and "__cosf" not in code and "__fdividef" not in code
+    assert "__sincosf" not in code          # the chain's sincosf is the precise one
     assert not any("fast_math" in f or "fmad" in f for f in _cuda.NVCC_FLAGS)
     assert "arch=compute_90a,code=sm_90a" in _cuda.NVCC_FLAGS
 
