@@ -34,7 +34,11 @@ K3 (``csrc/solve_island.cu``, the island solve alone from a ContactBundle
 made outside) is on none of those paths: its path is
 ``fused_world.world_step_batched``, driven on the card at N = 2, 4 and 1 and
 as the harness that holds K2's in-kernel Collide apart from its solve
-(phases 9-12); on env.step's paths its count stays 0.
+(phases 9-12); on env.step's paths its count stays 0. A K3 call is two
+launches: a list pass, one thread per env, that lists the envs with a live
+contact point on the card, then a solve pass that runs every car of the
+other envs as K1's chain without the tire model, one thread per car, beside
+one warp per listed env (without a bundle, the solve pass alone).
 
 The five kernels are built with nvcc at first use from the sources in the
 checkout, one nvcc per kernel, started together.
@@ -48,7 +52,8 @@ on coordinates of hundreds of metres), limit states equal. The track bars
 on_grass, count and nearest_beta equal, bonus within 2e-5.
   1. device: the card's name and power limit; no CUDA device -> exit 2
   2. build: the five kernels' build times and ptxas register/spill lines;
-     K1's, K2's (near and far pass), K3's and K4/K5's registers and spills
+     K1's, K2's (near and far pass), K3's (list and solve pass) and
+     K4/K5's registers and spills
   3. K1 vs plain: one island step through K1 and through its plain PyTorch
      version on the same card tensors at N = 1, E = 4096, after 20 driven
      steps; both bars; skid flags differing bounded; K1's ms on that input
@@ -87,16 +92,22 @@ on_grass, count and nearest_beta equal, bonus within 2e-5.
      plain tire model, Collide pass and make_bundle, then world_step_batched
      on the card against world.world_step on the same card tensors; every
      CarState field and both impulses within both bars; fails if no env has
-     a live contact. K3's count is set to 0 here
+     a live contact. K3's count is set to 0 here. After each K3 call of
+     phases 9-11: its live count (read on the host here) equals
+     fused_world.solve_live_envs' sum and the envs it listed are the live
+     ones
  10. K3 vs plain on phase 7's ram (N = 4) and at N = 1, E = 4096 (no bundle)
  11. K2 vs plain Collide + K3 on phase 6's input: K2's island step against
      the plain tire model, Collide and make_bundle followed by K3; both
-     bars, manifold ids differing bounded. K3's count read here: one launch
-     per world_step_batched call of phases 9-11
- 12. two K3 launches bit-identical; K3's ms per launch (CUDA graph, 50
-     launches) beside K2's on the same input, its bound
-     (solve_island_flops / solve_island_bytes), the plain solve's ms and the
-     plain tire + Collide + make_bundle ms
+     bars, manifold ids differing bounded. K3's count read here: one per
+     world_step_batched call of phases 9-11
+ 12. two K3 launches bit-identical, on phase 6's input and on the all-near
+     input (every env listed, in the order the list pass appended them);
+     K3's ms per launch (CUDA graph, 50 launches) beside K2's on the same
+     input (K1's at N = 1), its live envs, its bound (solve_island_flops /
+     solve_island_bytes), the plain solve's ms and the plain tire + Collide
+     + make_bundle ms: on phase 6's input, the all-far and all-near inputs,
+     the spawn tick, and at N = 1 with no bundle (phase 3's cars)
  13. N = 2 main path: as phase 5 with K2 (K1's and K3's counts 0); then
      phase 12's times on the main path's last input, and K2's ms beside its
      bound on the all-far and all-near inputs
@@ -578,7 +589,7 @@ def ptxas_table(name: str) -> dict:
     for ln in _cuda.build_info[name]["ptxas"]:
         if "Compiling entry function" in ln:
             words = [w for w in ln.replace("'", " ").split() if w.startswith("_Z")]
-            cur = next((k for k in ("near_pass", "far_pass", "solve_island", "contact_island",
+            cur = next((k for k in ("near_pass", "far_pass", "list_pass", "solve_pass",
                                     "joints_island", "track_pass", "paint_view")
                         if words and k in words[0]), ln)
             out[cur] = {}
@@ -708,6 +719,7 @@ def compare_solve(inputs, n: int, label: str) -> dict:
     gives no env a live contact."""
     post, force, motor, bundle = inputs[:4]
     k_cars, k_imp = fused_world.world_step_batched(post, force, motor, bundle, n)
+    live_list_check(bundle, post.hull_a.shape[0], label)
     p_cars, p_bundle = world.world_step(post, force, motor, contacts=bundle)
     torch.cuda.synchronize()
     devs = compare_cars(k_cars, p_cars, post, label)
@@ -726,16 +738,35 @@ def compare_solve(inputs, n: int, label: str) -> dict:
     return devs
 
 
+def live_list_check(bundle, envs: int, label: str) -> int:
+    """K3's last call: its live count (read on the host here) equals
+    solve_live_envs' sum, and the envs it listed are the live ones. Returns
+    the count."""
+    live = fused_world.solve_live_envs(bundle, envs)
+    count = int(fused_world.launch_solve.live_count)
+    listed = torch.sort(fused_world.launch_solve.live_list[:count].long()).values
+    same = torch.equal(listed.cpu(), live.nonzero().flatten().cpu())
+    phase(f"{label}: K3's live count {count}, solve_live_envs sum {int(live.sum())}, the "
+          f"listed envs are the live ones: {same}")
+    if count != int(live.sum()) or not same:
+        raise AssertionError(f"{label}: K3's live list differs from solve_live_envs")
+    return count
+
+
 def solve_times(pre, wheel_on_road, contacts, n: int) -> dict:
     """On one step's input: K3's time per launch (graph_ms over the bare
-    launch on packed inputs), K2's (the whole island, tire model and Collide
-    included), the plain tire model + Collide + make_bundle that feed K3,
-    the plain solve's time, and K3's bound from the work this bundle needs."""
+    launch on packed inputs, both its kernels), K2's (the whole island, tire
+    model and Collide included; K1's at n = 1), the plain tire model +
+    Collide + make_bundle that feed K3, the plain solve's time, K3's live
+    envs and its bound from the work this bundle needs."""
     post, force, motor, bundle = solve_inputs(pre, wheel_on_road, contacts, n)[:4]
     fin, ls_in = fused_world.pack_solve_inputs(post, force, motor)
     ms = graph_ms(lambda: fused_world.launch_solve(fin, ls_in, bundle, n), KERNEL_TIMING_LAUNCHES)
+    envs = post.hull_a.shape[0]
+    live_envs = int(fused_world.solve_live_envs(bundle, envs).sum())
     fin2, ls_in2 = fused_world.pack_inputs(pre, wheel_on_road)
-    k2_ms = graph_ms(lambda: fused_world.launch_contacts(fin2, ls_in2, contacts, n),
+    k2_ms = graph_ms(lambda: fused_world.launch_contacts(fin2, ls_in2, contacts, n)
+                     if n > 1 else fused_world.launch(fin2, ls_in2, envs),
                      KERNEL_TIMING_LAUNCHES)
     collide_ms = cuda_ms(lambda: solve_inputs(pre, wheel_on_road, contacts, n), 5)
     torch.cuda.synchronize()
@@ -743,22 +774,24 @@ def solve_times(pre, wheel_on_road, contacts, n: int) -> dict:
     p_cars, _ = world.world_step(post, force, motor, contacts=bundle)
     torch.cuda.synchronize()
     plain_ms = 1e3 * (time.perf_counter() - t0)
-    envs = post.hull_a.shape[0]
     n_limit = int((p_cars.limit_state != 0).sum())
     counts = fused_world.solve_island_work(bundle, n)
     flops = fused_world.solve_island_flops(envs * n, n_limit, **counts)
-    nbytes = fused_world.solve_island_bytes(envs * n, envs * bundle.man.normal.shape[1])
+    mm = 0 if bundle is None else bundle.man.normal.shape[1]
+    nbytes = fused_world.solve_island_bytes(envs * n, envs * mm)
     flop_ms, byte_ms = 1e3 * flops / PEAK_FP32_FLOPS, 1e3 * nbytes / PEAK_BYTES_PER_S
     out = {"ms": ms, "plain_ms": plain_ms, "bound_ms": max(flop_ms, byte_ms),
            "bound_by": "operations" if flop_ms >= byte_ms else "bytes", "flops": flops,
            "bytes": nbytes, "k2_ms_same_input": k2_ms, "solve_share_of_k2": ms / k2_ms,
-           "plain_collide_ms": collide_ms}
-    phase(f"K3 {ms:.5f} ms/launch (CUDA graph, {KERNEL_TIMING_LAUNCHES} launches); bound "
-          f"{out['bound_ms']:.5f} ms ({flops} fp32 ops = {flop_ms:.5f} ms, {nbytes} bytes = "
-          f"{byte_ms:.5f} ms; {n_limit} joints at a limit, {counts['n_live_points']} live points, "
-          f"{counts['n_touched_bodies']} touched bodies); K2 on the same step {k2_ms:.5f} ms, so "
-          f"the solve is {ms / k2_ms:.1%} of K2; plain tire + Collide + make_bundle "
-          f"{collide_ms:.4f} ms; plain solve {plain_ms:.3f} ms")
+           "plain_collide_ms": collide_ms, "live_envs": live_envs}
+    island = "K2" if n > 1 else "K1"
+    phase(f"K3 {ms:.5f} ms/launch (CUDA graph, {KERNEL_TIMING_LAUNCHES} launches; {live_envs} "
+          f"of {envs} envs live); bound {out['bound_ms']:.5f} ms ({flops} fp32 ops = "
+          f"{flop_ms:.5f} ms, {nbytes} bytes = {byte_ms:.5f} ms; {n_limit} joints at a limit, "
+          f"{counts['n_live_points']} live points, {counts['n_touched_bodies']} touched bodies); "
+          f"{island} on the same step {k2_ms:.5f} ms, so the solve is {ms / k2_ms:.1%} of "
+          f"{island}; plain tire + Collide + make_bundle {collide_ms:.4f} ms; plain solve "
+          f"{plain_ms:.3f} ms")
     return out
 
 
@@ -1527,6 +1560,7 @@ def main() -> int:
     phase("11/19 K2 vs plain Collide + K3 on phase 6's input")
     post2, _, _, _, skid2, man2 = solve2
     k3_cars, (k3_ni, k3_ti) = fused_world.world_step_batched(*solve2[:4], 2)
+    live_list_check(solve2[3], E, "K3 on phase 6's input")
     k3_out = (k3_cars, skid2, ContactState(normal_imp=k3_ni, tangent_imp=k3_ti, ids=man2.ids))
     devs23, id_miss23, skid_miss23 = compare_contact_step(k_out, k3_out, pre, cs_pre,
                                                           "K2 vs plain Collide + K3")
@@ -1541,14 +1575,25 @@ def main() -> int:
         raise AssertionError(f"K3 launched {k3_launches} times on its path, expected 4")
 
     phase(f"12/19 K3 determinism and times at N=2, E={E} on phase 6's input, beside K2 on {smi}")
-    fin3, ls3 = fused_world.pack_solve_inputs(*solve2[:3])
-    a = fused_world.launch_solve(fin3, ls3, solve2[3], 2)
-    b = fused_world.launch_solve(fin3, ls3, solve2[3], 2)
-    same3 = all(torch.equal(x, y) for x, y in zip(a, b))
-    phase(f"two K3 launches bit-identical: {same3}")
-    if not same3:
-        raise AssertionError("two K3 launches on the same input differ")
+    same3 = []
+    for solve_in in (solve2, solve_inputs(*near_in, 2)):
+        fin3, ls3 = fused_world.pack_solve_inputs(*solve_in[:3])
+        a = fused_world.launch_solve(fin3, ls3, solve_in[3], 2)
+        b = fused_world.launch_solve(fin3, ls3, solve_in[3], 2)
+        same3.append(all(torch.equal(x, y) for x, y in zip(a, b)))
+    near_listed = int(fused_world.launch_solve.live_count)
+    phase(f"two K3 launches bit-identical: {same3[0]}; on the all-near input ({near_listed} "
+          f"envs listed in the order the list pass appended them): {same3[1]}")
+    if not all(same3) or near_listed != E:
+        raise AssertionError("two K3 launches on the same input differ, or the all-near input "
+                             "has dead envs")
     times3 = solve_times(pre, state.wheel_on_road, cs_pre, 2)
+    times3_more = {}
+    for name, args in (("all-far", (*far_in, 2)), ("all-near", (*near_in, 2)),
+                       ("spawn tick", (sp_cars, sp_road, sp_cs, 2)),
+                       ("N=1, no bundle", (pre1, road1, None, 1))):
+        phase(f"K3 on the {name} input:")
+        times3_more[name] = solve_times(*args)
 
     phase(f"13/19 N=2 main path: reset_batch E={E} ({len(SEEDS)} tracks) + {WARMUP} "
           f"warm-up + {T} steps")
@@ -1660,6 +1705,12 @@ def main() -> int:
                 k2_vs_collide_k3_id_miss_envs=id_miss23,
                 **{f"{k}_n4_e1024": times4[k] for k in
                    ("ms", "bound_ms", "k2_ms_same_input", "solve_share_of_k2")},
+                launches_per_call="2 (list pass, then solve pass); 1 without a bundle",
+                live_envs=times3["live_envs"],
+                live_envs_main_path_last_input=times3_last["live_envs"],
+                more_inputs={name: {k: t[k] for k in ("ms", "bound_ms", "bound_by", "plain_ms",
+                                                      "k2_ms_same_input", "live_envs")}
+                             for name, t in times3_more.items()},
                 ptxas=ptx["K3"])
     phase(f"19/19 report: every phase passed in {time.perf_counter() - start:.1f} s")
     print(json.dumps({"kernels": [k1, k2, k3, k45, k6], "rollout": rollout,

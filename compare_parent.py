@@ -20,7 +20,11 @@ a change in it.
     share of 32-car warps whose cars differ in a joint's limit state;
   - K2 and K3, on the seven inputs below: the same bytes as the parent's,
     two launches identical, every far env's cars out of K2 byte-equal to
-    the same cars through K1, K2's near count against ``near_flags``;
+    the same cars through K1, K2's near count against ``near_flags``, and
+    K3's live count and list against ``solve_live_envs`` (a version whose
+    K3 takes the list: 17 pointers);
+  - K3 without a bundle (every car a dead car) at N = 1 on phase 3's cars
+    and at N = 2 on phase 6's: the same bytes, two launches identical;
   - K4/K5, at N = 1 and N = 2 on chip_smoke.py's phase-14 inputs and the
     main path's last, and on the N = 2 spawn tick's first 1024 and 256
     envs: each version against the plain track pass under the
@@ -40,6 +44,10 @@ a change in it.
   one process each: three 100-step windows of the N = 1 and of the N = 2
   main path, the state-PPO rollout, the pixel main path and the pixel-PPO
   env side.
+
+``kernels`` and ``variants`` end with a line ``FAILED [...]`` naming every
+check that did not hold (an empty list when all held), and exit 1 if any
+did.
 
 The K2/K3 inputs (E = 4096, N = 2 unless named): chip_smoke.py's phase 6
 state; the N = 2 main path's last; all-far (phase 6's cars, car 1 of every
@@ -69,7 +77,8 @@ import torch  # noqa: E402
 
 import chip_smoke as cs  # noqa: E402
 from multi_car_racing_tpu_torch import EnvConfig, _cuda, env as penv  # noqa: E402
-from multi_car_racing_tpu_torch.physics import fused_world as fw, track_engine as te  # noqa: E402
+from multi_car_racing_tpu_torch.physics import fused_world as fw, tire  # noqa: E402
+from multi_car_racing_tpu_torch.physics import track_engine as te  # noqa: E402
 from multi_car_racing_tpu_torch.physics.collide import ContactState  # noqa: E402
 from multi_car_racing_tpu_torch.physics.state import apply_controls  # noqa: E402
 from multi_car_racing_tpu_torch.util import tree_map  # noqa: E402
@@ -82,15 +91,16 @@ VP, CI, CF = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
 # Each launch function's arguments, in this checkout and in its parent
-# (bbff43e), where K4/K5 took no cull radii. Only these two are kept: a
-# comparison with an older commit needs that commit's compare_parent.py.
+# (307134d), whose K3 took no live-env list and count. Only these two are
+# kept: a comparison with an older commit needs that commit's
+# compare_parent.py.
 ARGTYPES = {
     "joints_island": [VP] * 5 + [CI] * 3 + [VP],
     "contact_island": [VP] * 15 + [CI] * 7 + [VP],
-    "solve_island": [VP] * 15 + [CI] * 7 + [VP],
+    "solve_island": [VP] * 17 + [CI] * 7 + [VP],
     "track_pass": [VP] * 20 + [CI] * 3 + [CF] * 6 + [VP],
 }
-PARENT_ARGTYPES = dict(ARGTYPES, track_pass=[VP] * 20 + [CI] * 3 + [CF] * 3 + [VP])
+PARENT_ARGTYPES = dict(ARGTYPES, solve_island=[VP] * 15 + [CI] * 7 + [VP])
 
 
 def build(tag: str, src_dir: str, name: str, argtypes: dict):
@@ -116,10 +126,11 @@ class Version:
         types = PARENT_ARGTYPES if parent else ARGTYPES
         with ThreadPoolExecutor(len(KERNELS)) as ex:
             built = dict(zip(KERNELS, ex.map(lambda n: build(tag, src_dir, n, types), KERNELS)))
-        self.tag, self.culled = tag, not parent
+        self.tag = tag
         self.k1, self.k2, self.k3, self.k45 = (built[n][0] for n in KERNELS)
         self.ptxas = {n: b[1] for n, b in built.items()}
-        self.near_count = self.near_list = None
+        self.lists = len(types["solve_island"]) == 25     # K3 takes the live-env list
+        self.near_count = self.near_list = self.live_count = self.live_list = None
 
     def joints(self, fin, ls_in, vel: int = 180, pos: int = 60):
         fout = torch.empty((fw.OUT_ROWS["N_OUT"], fin.shape[1]), device=fin.device)
@@ -152,23 +163,35 @@ class Version:
         return fout, ls_out, ni, ti, ids
 
     def solve(self, fin, ls_in, bundle, n):
+        """K3 on packed rows and a bundle (or None): (fout, ls_out) and, with a
+        bundle, the impulses."""
         dev = fin.device
-        envs, mm = fin.shape[1] // n, bundle.man.normal.shape[1]
+        envs = fin.shape[1] // n
         fout = torch.empty((fw.N_SOLVE_OUT, fin.shape[1]), device=dev)
         ls_out = torch.empty((4, fin.shape[1]), dtype=torch.int32, device=dev)
-        ni = torch.empty((envs, mm, 2), device=dev)
-        ti = torch.empty_like(ni)
-        m = bundle.man
-        ctab, itab = fw._contact_tables(dev, n)
-        rc = self.k3(fin.data_ptr(), ls_in.data_ptr(), m.normal.data_ptr(), m.point.data_ptr(),
-                     m.separation.data_ptr(), m.point_ok.data_ptr(),
-                     bundle.normal_imp.data_ptr(), bundle.tangent_imp.data_ptr(),
-                     fout.data_ptr(), ls_out.data_ptr(), ni.data_ptr(), ti.data_ptr(),
-                     fw._params(dev).data_ptr(), ctab.data_ptr(), itab.data_ptr(),
+        if bundle is None:
+            mm, ni = 0, None
+            rows, out_imp, tabs = [0] * 6, [0, 0], [0, 0]
+        else:
+            m = bundle.man
+            mm = m.normal.shape[1]
+            ni = torch.empty((envs, mm, 2), device=dev)
+            ti = torch.empty_like(ni)
+            rows = [t.data_ptr() for t in (m.normal, m.point, m.separation, m.point_ok,
+                                           bundle.normal_imp, bundle.tangent_imp)]
+            out_imp = [ni.data_ptr(), ti.data_ptr()]
+            tabs = [t.data_ptr() for t in fw._contact_tables(dev, n)]
+        lists = []
+        if self.lists:
+            self.live_list = torch.empty(envs, dtype=torch.int32, device=dev)
+            self.live_count = torch.empty(1, dtype=torch.int32, device=dev)
+            lists = [self.live_list.data_ptr(), self.live_count.data_ptr()]
+        rc = self.k3(fin.data_ptr(), ls_in.data_ptr(), *rows, fout.data_ptr(),
+                     ls_out.data_ptr(), *out_imp, fw._params(dev).data_ptr(), *tabs, *lists,
                      envs, n, mm, 180, 60, 180, 60, torch.cuda.current_stream().cuda_stream)
         if rc:
             raise RuntimeError(f"{self.tag} solve_island launch failed ({rc})")
-        return fout, ls_out, ni, ti
+        return (fout, ls_out) if ni is None else (fout, ls_out, ni, ti)
 
     def track(self, track, wheels, origins, visited, touched):
         E, N, MT = visited.shape
@@ -184,10 +207,9 @@ class Version:
             track.quad_T, track.quad_ax_T, track.quad_lo, track.quad_hi, track.curb_quad_T,
             track.xy, track.beta, track.valid, track.n_tiles, wheels, origins, visited,
             touched, *out)]
-        radii = (te.REACH_BASE, te.WHEEL_CULL_EXTRA, te.ORIGIN_CULL_EXTRA) if self.culled else ()
         rc = self.k45(*ptrs, E, N, MT, te.overlap.WHEEL_HX, te.overlap.WHEEL_HY,
-                      te.C.SENSOR_OVERLAP_MARGIN, *radii,
-                      torch.cuda.current_stream().cuda_stream)
+                      te.C.SENSOR_OVERLAP_MARGIN, te.REACH_BASE, te.WHEEL_CULL_EXTRA,
+                      te.ORIGIN_CULL_EXTRA, torch.cuda.current_stream().cuda_stream)
         if rc:
             raise RuntimeError(f"{self.tag} track_pass launch failed ({rc})")
         return out
@@ -292,9 +314,9 @@ def in_turns(versions, res: dict, key: str, fn, timer=cs.graph_ms) -> None:
             res[v.tag].setdefault(key, []).append(timer(lambda: fn(v), REPS))
 
 
-def compare_k1(versions: list, dev, contact_inputs: dict) -> dict:
+def compare_k1(versions: list, k1_in: dict) -> dict:
     res = {}
-    for name, (cars, road) in k1_inputs(dev, contact_inputs).items():
+    for name, (cars, road) in k1_in.items():
         fin, ls_in = fw.pack_inputs(cars, road)
         ref = versions[0].joints(fin, ls_in)
         r = {"cars": fin.shape[1], "mixed_warp_share_per_joint": mixed_warps(ref[1]),
@@ -327,7 +349,9 @@ def compare_contact(versions: list, dev, contact_inputs: dict) -> dict:
                                                                               bundle, n)
         k1, k1_ls = fw.launch(fin, ls_in, fin.shape[1])
         far = (~near)[:, None].expand(-1, n).reshape(-1)
-        r = {"near_share": float(near.float().mean()), "near_envs": int(near.sum())}
+        live = fw.solve_live_envs(bundle, near.shape[0])
+        r = {"near_share": float(near.float().mean()), "near_envs": int(near.sum()),
+             "live_envs": int(live.sum())}
         for v in versions:
             a2, b2 = v.contact(fin, ls_in, cst, n), v.contact(fin, ls_in, cst, n)
             a3, b3 = v.solve(fin3, ls3, bundle, n), v.solve(fin3, ls3, bundle, n)
@@ -340,14 +364,76 @@ def compare_contact(versions: list, dev, contact_inputs: dict) -> dict:
             if not out["k3_equal"]:
                 out["k3_differing"] = differing(ref3, a3)
             out["near_count"] = int(v.near_count)
+            out["near_count_equal"] = out["near_count"] == r["near_envs"]
             out["far_equal_k1"] = (torch.equal(a2[0][:, far], k1[:, far])
                                    and torch.equal(a2[1][:, far], k1_ls[:, far]))
+            out.update(live_list_check(v, live))
             r[v.tag] = out
         in_turns(versions, r, "k2_ms", lambda v: v.contact(fin, ls_in, cst, n))
         in_turns(versions, r, "k3_ms", lambda v: v.solve(fin3, ls3, bundle, n))
         print(f"{name}: {json.dumps(r)}", flush=True)
         res[name] = r
     return res
+
+
+def live_list_check(v, live: torch.Tensor) -> dict:
+    """A version's K3 live count and list (of its last launch) against the
+    plain predicate: the count equals live's sum, the listed envs are the
+    live ones. Empty for a K3 that takes no list."""
+    if not v.lists:
+        return {}
+    count = int(v.live_count)
+    listed = torch.sort(v.live_list[:count].long()).values
+    return {"k3_live_count": count, "k3_live_count_equal": count == int(live.sum()),
+            "k3_listed_are_live": torch.equal(listed, live.nonzero().flatten().to(listed))}
+
+
+def compare_solve_alone(versions: list, dev, contact_inputs: dict, k1_in: dict) -> dict:
+    """K3 with no bundle (every env dead: the joints-only chains): at N = 1
+    on phase 3's cars and at N = 2 on phase 6's."""
+    res = {}
+    cases = {"N=1, no bundle": (k1_in["phase 3"], 1),
+             "N=2, no bundle": (contact_inputs["phase 6"][0][:2], 2)}
+    for name, ((cars, road), n) in cases.items():
+        post, force, motor, _ = tire.tire_step(cars, road)
+        fin3, ls3 = fw.pack_solve_inputs(post, force, motor)
+        ref = versions[0].solve(fin3, ls3, None, n)
+        live = fw.solve_live_envs(None, fin3.shape[1] // n)
+        r = {"envs": fin3.shape[1] // n, "live_envs": 0}
+        for v in versions:
+            a, b = v.solve(fin3, ls3, None, n), v.solve(fin3, ls3, None, n)
+            torch.cuda.synchronize()
+            out = {"k3_equal": same(ref, a), "k3_two_launches_identical": same(a, b)}
+            if not out["k3_equal"]:
+                out["k3_differing"] = differing(ref, a)
+            out.update(live_list_check(v, live))
+            r[v.tag] = out
+        in_turns(versions, r, "k3_ms", lambda v: v.solve(fin3, ls3, None, n))
+        print(f"K3 {name}: {json.dumps(r)}", flush=True)
+        res[name] = r
+    return res
+
+
+def failed_checks(report: dict) -> list:
+    """Every check of a report that did not hold: each check flag (a name
+    ending in equal, identical, _live, _k1 or within_bars) that is False,
+    and each non-empty list of K4/K5 outputs whose bytes differ."""
+    bad = []
+
+    def walk(x, path):
+        if isinstance(x, dict):
+            for k, val in x.items():
+                walk(val, path + [k])
+        elif ((x is False and path[-1].endswith(("equal", "identical", "_live", "_k1",
+                                                 "within_bars")))
+              or (path[-1] == "bytes_differ_from_first" and x)):
+            bad.append("/".join(path))
+
+    for part in ("k1", "inputs", "solve_alone", "track"):
+        walk(report.get(part, {}), [part])
+    if report.get("sincos_mismatches"):
+        bad.append("sincos")
+    return bad
 
 
 def compare_track(versions: list, dev) -> dict:
@@ -495,14 +581,18 @@ def main() -> int:
         report["ptxas"] = {v.tag: v.ptxas for v in versions}
         report["sincos_mismatches"] = sincos_check(dev)
         contact_inputs = inputs(dev)
-        report["k1"] = compare_k1(versions, dev, contact_inputs)
+        k1_in = k1_inputs(dev, contact_inputs)
+        report["k1"] = compare_k1(versions, k1_in)
         report["inputs"] = compare_contact(versions, dev, contact_inputs)
+        report["solve_alone"] = compare_solve_alone(versions, dev, contact_inputs, k1_in)
         report["track"] = compare_track(versions, dev)
+        report["failed"] = failed_checks(report)
+        print(f"FAILED {json.dumps(report['failed'])}", flush=True)
     os.makedirs(BUILD, exist_ok=True)
     with open(os.path.join(BUILD, f"compare_{mode}.json"), "w") as f:
         json.dump(report, f, indent=1)
     print(f"done in {time.perf_counter() - t0:.1f} s", flush=True)
-    return 0
+    return 1 if report.get("failed") else 0
 
 
 if __name__ == "__main__":

@@ -39,8 +39,9 @@
 // shared memory only the bodies' state and the rows' deltas, and a body adds
 // its entries through selects rather than branches. Otherwise each sub-pass
 // reads what it needs from shared memory. K3 (kResident false) always does:
-// the registers would cost the occupancy of its warps of far envs, which
-// share its kernel. Each choice was timed against the others on the card.
+// the registers (218 against 168) make a lone live warp ~8% faster but cost
+// the occupancy that a batch of live envs needs (all-near 15% slower). Each
+// choice was timed against the others on the card.
 //
 // The arithmetic follows the plain PyTorch version,
 // multi_car_racing_tpu_torch/physics/collide.py (make_bundle, warm_start,
@@ -565,18 +566,6 @@ __device__ __forceinline__ void store_impulses(const Shared& sh, float* __restri
     nio[g * 2 + 1] = sh.r(R_NI1)[r];
     tio[g * 2] = sh.r(R_TI0)[r];
     tio[g * 2 + 1] = sh.r(R_TI1)[r];
-  }
-}
-
-// The impulses of an env with no live contact: zeros.
-__device__ __forceinline__ void store_zero_impulses(float* __restrict__ nio,
-                                                    float* __restrict__ tio, size_t row0,
-                                                    int MM, int lane) {
-  for (int r = lane; r < MM; r += 32) {
-    nio[(row0 + r) * 2] = 0.f;
-    nio[(row0 + r) * 2 + 1] = 0.f;
-    tio[(row0 + r) * 2] = 0.f;
-    tio[(row0 + r) * 2 + 1] = 0.f;
   }
 }
 

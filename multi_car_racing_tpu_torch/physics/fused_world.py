@@ -30,11 +30,15 @@ through the kernels.
 computed outside (a ContactBundle): force integration, the joint limit init
 and the island solve of cars the tire model has already run on. On CUDA
 tensors it launches ``csrc/solve_island.cu`` (K3), which replaces the TPU
-kernel ``pallas_world.py::_make_solve_kernel``; on CPU tensors it runs
-``world.world_step`` on the same bundle. It is the differential harness for
-K2: K2 against the plain Collide pass followed by K3 holds K2's in-kernel
-Collide apart from its solve. ``world_step_batched.launches`` counts K3
-launches.
+kernel ``pallas_world.py::_make_solve_kernel``: a list pass, one thread per
+env, that lists on the card the envs with a live contact point (the test of
+:func:`solve_live_envs`); then a solve pass whose first blocks run every car
+of an env with no live point as K1's chain without the tire model, one
+thread per car, and whose blocks after those take the listed envs, one warp
+each. On CPU tensors it runs ``world.world_step`` on the same bundle. It is
+the differential harness for K2: K2 against the plain Collide pass followed
+by K3 holds K2's in-kernel Collide apart from its solve.
+``world_step_batched.launches`` counts K3 calls.
 """
 
 from __future__ import annotations
@@ -413,8 +417,10 @@ def _library(name: str = KERNEL):
         vp, ci = ctypes.c_void_p, ctypes.c_int
         if name == KERNEL:
             fn.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, vp]
-        else:                   # contact_island and solve_island
+        elif name == CONTACT_KERNEL:
             fn.argtypes = [vp] * 15 + [ci] * 7 + [vp]
+        else:                   # solve_island: its live-env list and count too
+            fn.argtypes = [vp] * 17 + [ci] * 7 + [vp]
         fn.restype = ci
         err = getattr(lib, f"{name}_error_string")
         err.argtypes = [ci]
@@ -686,6 +692,16 @@ def solve_island_flops(n_cars: int, n_limit_joints: int, n_live_points: int,
             + n_touched_bodies * FLOPS_BODY_UPDATE * (1 + 2 * k_vel + k_pos))
 
 
+def solve_live_envs(bundle: collide.ContactBundle | None, num_envs: int) -> torch.Tensor:
+    """(E,) bool: the envs whose bundle rows hold a live contact point (any
+    point_ok set), which K3's list pass lists for its solve pass; all
+    False (on the CPU) without a bundle. The plain version of the list
+    pass's test, for tests and chip_smoke.py; the card path never calls it."""
+    if bundle is None:
+        return torch.zeros(num_envs, dtype=torch.bool)
+    return bundle.man.point_ok.reshape(num_envs, -1).any(1)
+
+
 def solve_island_work(bundle: collide.ContactBundle | None, num_cars: int) -> dict:
     """What K3's contact work depends on in this bundle: live contact points
     and, per point index, the bodies that they touch (zero without one)."""
@@ -752,10 +768,20 @@ def launch_solve(fin: torch.Tensor, ls_in: torch.Tensor,
     """Launch K3 on packed car rows (from :func:`pack_solve_inputs`, car
     index e*num_cars + n) and a bundle's rows (or none: the joints-only
     island), on the current stream. Every input must already be contiguous
-    on the card: the wrapper raises rather than copying. Returns (fout
+    on the card, and point_ok on a 16-byte boundary (as the allocator
+    places a tensor): the wrapper raises rather than copying. Returns (fout
     (46, n), ls_out (4, n), normal_imp, tangent_imp), the impulses (E, MM, 2)
-    or None without a bundle. Counts the launch in
-    ``world_step_batched.launches``."""
+    or None without a bundle. Counts the call in
+    ``world_step_batched.launches``.
+
+    K3 is two kernels on the stream: with a bundle, the list pass (one
+    thread per env: the envs with a live contact point, listed on the card),
+    then the solve pass (the joints-only chain of every car of the other
+    envs, one thread per car, beside one warp per listed env). The last
+    call's list and count stay on the card, in the int32 tensors
+    ``launch_solve.live_list`` (E) and ``launch_solve.live_count`` (1; the
+    list's first count entries are the live envs, in no fixed order);
+    nothing here reads them."""
     dev = fin.device
     n_cars = fin.shape[1] if fin.dim() == 2 else -1
     E = n_cars // num_cars if num_cars > 0 else 0
@@ -770,9 +796,13 @@ def launch_solve(fin: torch.Tensor, ls_in: torch.Tensor,
             raise ValueError("launch_solve: car-car contacts need two or more cars per env")
         mm = len(collide.car_pairs(num_cars)) * collide.M_PER_PAIR
         _check_tensors("launch_solve", dev, _bundle_specs(bundle, E, mm))
+        if bundle.man.point_ok.data_ptr() % 16:     # K3 reads it in 16-byte words
+            raise ValueError("launch_solve: point_ok must start on a 16-byte boundary")
     lib = _library(SOLVE_KERNEL)
     fout = torch.empty((N_SOLVE_OUT, n_cars), dtype=torch.float32, device=dev)
     ls_out = torch.empty((4, n_cars), dtype=torch.int32, device=dev)
+    live_list = torch.empty(E, dtype=torch.int32, device=dev)
+    live_count = torch.empty(1, dtype=torch.int32, device=dev)
     if bundle is None:
         ni = ti = None
         rows = [0] * 6
@@ -791,6 +821,7 @@ def launch_solve(fin: torch.Tensor, ls_in: torch.Tensor,
         rc = lib.solve_island_launch(
             fin.data_ptr(), ls_in.data_ptr(), *rows, fout.data_ptr(), ls_out.data_ptr(),
             ni_p, ti_p, _params(dev, dt).data_ptr(), ctab_p, itab_p,
+            live_list.data_ptr(), live_count.data_ptr(),
             E, num_cars, mm, int(velocity_iters), int(position_iters), int(k_vel), int(k_pos),
             torch.cuda.current_stream(dev).cuda_stream,
         )
@@ -798,6 +829,7 @@ def launch_solve(fin: torch.Tensor, ls_in: torch.Tensor,
         msg = lib.solve_island_error_string(rc).decode()
         raise RuntimeError(f"solve_island launch failed: {msg} ({rc})")
     world_step_batched.launches += 1
+    launch_solve.live_list, launch_solve.live_count = live_list, live_count
     return fout, ls_out, ni, ti
 
 
@@ -815,7 +847,10 @@ def world_step_batched(cars: CarState, wheel_force: torch.Tensor, motor_speed: t
 
     Returns (new CarState, (normal_imp, tangent_imp) (E, MM, 2) or None):
     the same results as the JAX package's ``pallas_world.world_step_batched``
-    and ``vmap(world.world_step)`` up to float noise."""
+    and ``vmap(world.world_step)`` up to float noise. A call on the card
+    makes two launches with a bundle (K3's list pass and solve pass) and
+    one without (the solve pass); ``world_step_batched.launches`` counts
+    calls."""
     dev = cars.hull_a.device
     if cars.hull_a.shape[1] != num_cars:
         raise ValueError(f"world_step_batched: cars hold {cars.hull_a.shape[1]} cars per "
@@ -842,3 +877,4 @@ def world_step_batched(cars: CarState, wheel_force: torch.Tensor, motor_speed: t
 
 
 world_step_batched.launches = 0
+launch_solve.live_list = launch_solve.live_count = None

@@ -463,7 +463,11 @@ def _solve_inputs(num_envs, num_cars, steps):
     and, at two or more cars, the plain Collide pass and make_bundle. Returns
     (pre-solve cars, wheel_on_road, contact carry, post-tire cars, force,
     motor speed, bundle or None, skid, manifolds or None)."""
-    pre, on_road, cs = _k2_state(num_envs, num_cars, steps)
+    return _solve_from(*_k2_state(num_envs, num_cars, steps), num_cars)
+
+
+def _solve_from(pre, on_road, cs, num_cars):
+    """_solve_inputs' tuple from an island step's inputs."""
     post, force, motor, skid = tire.tire_step(pre, on_road)
     if num_cars == 1:
         return pre, on_road, cs, post, force, motor, None, skid, None
@@ -483,10 +487,16 @@ def test_solve_kernel_matches_world_step_on_card(num_envs, num_cars):
     _need_card()
     *_, post, force, motor, bundle, _, _ = _solve_inputs(num_envs, num_cars, 40)
     before = fused_world.world_step_batched.launches
+    _assert_solve_bars(post, force, motor, bundle, num_cars)
+    assert fused_world.world_step_batched.launches == before + 1
+
+
+def _assert_solve_bars(post, force, motor, bundle, num_cars=2):
+    """K3 (world_step_batched) against world.world_step on the same card
+    tensors and bundle: both bars, limit states equal."""
     k, k_imp = fused_world.world_step_batched(post, force, motor, bundle, num_cars)
     p, p_bundle = world.world_step(post, force, motor, contacts=bundle)
     torch.cuda.synchronize()
-    assert fused_world.world_step_batched.launches == before + 1
     for f in CAR_FIELDS:
         _assert_bars(f, getattr(p, f), getattr(k, f), getattr(post, f))
     assert torch.equal(k.limit_state, p.limit_state)
@@ -549,6 +559,64 @@ def test_solve_wrapper_rejects_bad_inputs_on_card():
     refused(dataclasses.replace(bundle, normal_imp=bundle.normal_imp[:, :47].contiguous()))
     refused(bundle, "cars per env", n=3)
     refused(bundle, cars=post.replace(hull_a=post.hull_a.double()))
+    shifted = torch.zeros(man.point_ok.numel() + 1, dtype=torch.bool, device="cuda")[1:]
+    shifted = shifted.view(man.point_ok.shape)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16
+    refused(dataclasses.replace(bundle, man=dataclasses.replace(man, point_ok=shifted)),
+            "16-byte")
     with pytest.raises(ValueError, match="two or more cars"):
         fin, ls_in = fused_world.pack_solve_inputs(post, force, motor)
         fused_world.launch_solve(fin[:, ::2].contiguous(), ls_in[:, ::2].contiguous(), bundle, 1)
+
+
+def _solve_case(name):
+    """K3's (post-tire cars, force, motor speed, bundle) on a driven batch,
+    an all-dead one (the all-far cars: no live point) and an all-live one
+    (the all-near cars: every env touches)."""
+    make = {"driven": lambda: _k2_state(512, 2, 40), "all-dead": lambda: _all_far(256),
+            "all-live": lambda: _all_near(256)}[name]
+    return _solve_from(*make(), 2)[3:7]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("inputs", ["driven", "all-dead", "all-live"])
+def test_solve_kernel_lists_exactly_the_live_envs(inputs):
+    """K3's list pass: the count it leaves on the card equals
+    solve_live_envs' sum, and the envs it listed are the live ones."""
+    _need_card()
+    post, force, motor, bundle = _solve_case(inputs)
+    live = fused_world.solve_live_envs(bundle, post.hull_a.shape[0])
+    assert bool(live.all()) if inputs == "all-live" else (
+        not bool(live.any()) if inputs == "all-dead" else 0 < int(live.sum()) < live.numel())
+    fin, ls_in = fused_world.pack_solve_inputs(post, force, motor)
+    fused_world.launch_solve(fin, ls_in, bundle, 2)
+    torch.cuda.synchronize()
+    count = int(fused_world.launch_solve.live_count)
+    assert count == int(live.sum())
+    live_list = fused_world.launch_solve.live_list
+    listed = torch.sort(live_list[:count].long()).values
+    assert torch.equal(listed, live.nonzero().flatten())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("inputs", ["all-dead", "all-live"])
+def test_solve_kernel_matches_world_step_on_all_dead_and_all_live_batches(inputs):
+    """K3 against world.world_step where every car runs alone (the all-far
+    cars) and where every env is a live warp (the all-near cars)."""
+    _need_card()
+    _assert_solve_bars(*_solve_case(inputs))
+
+
+@pytest.mark.gpu
+def test_solve_kernel_is_bit_identical_with_its_live_list_in_any_order():
+    """Every env live: the list pass appends 4096 envs to the live list in an
+    order that differs from launch to launch, and the outputs do not."""
+    _need_card()
+    post, force, motor, bundle = _solve_from(*_all_near(4096), 2)[3:7]
+    fin, ls_in = fused_world.pack_solve_inputs(post, force, motor)
+    a = fused_world.launch_solve(fin, ls_in, bundle, 2)
+    b = fused_world.launch_solve(fin, ls_in, bundle, 2)
+    torch.cuda.synchronize()
+    assert int(fused_world.launch_solve.live_count) == 4096
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
