@@ -30,6 +30,13 @@ branching on its own warm-up flag; each warp bins 16x16 patches of its view
 by a conservative edge-function reject, then paints 8x8 cells testing only
 their candidates).
 
+The learner's paths (phases 19-22) run those kernels through the env's
+entry points: the four committed policies evaluated on the card (K1 at
+N = 1, K2 at N = 2, K4/K5 on every step, K6 on every pixel-policy step) and
+three PPO train steps at each recipe's shape, with a checkpoint saved and
+restored on the card. No learner module has a kernel of its own: the JAX
+learner is XLA, so the network and the updates are plain torch ops.
+
 K3 (``csrc/solve_island.cu``, the island solve alone from a ContactBundle
 made outside) is on none of those paths: its path is
 ``fused_world.world_step_batched``, driven on the card at N = 2, 4 and 1 and
@@ -162,7 +169,31 @@ on_grass, count and nearest_beta equal, bonus within 2e-5.
      chunks = 1152 steps past the 1000-step limit, so warm and steady views
      mix within launches; K6 = frames, K2 = K4/K5 = 1 + steps + reset ticks,
      K1 and the plain painter 0; env-steps/s and the frame ms per chunk
- 19. the kernels JSON line, the nvidia-smi line, and the result line
+ 19. the learner's network: each of the four committed policies
+     (learner/policies) on the card -- cuDNN's bf16 convolutions for the
+     pixel torso -- against the same policy on the CPU, on the observations
+     of 64 cars driven 20 steps on the card; 1e-5 * max(1, |x|) for the
+     state nets, 1e-2 * max(1, max|CPU|) on mean and value for the pixel
+     nets (tests/test_torch_networks.py's bars)
+ 20. the learner's evaluation: each committed policy deterministically over
+     100 fresh host-track episodes (seed 7) through learner/evaluate.py, on
+     the card; fails when its mean misses the recorded one by more than
+     2.58 * sqrt((sigma_rec^2 + sigma_port^2) / 100); mean, std, min, max,
+     best agent, tile fraction, length, the three worst episodes, wall
+     seconds, env-steps/s and the network's forward ms at E * N rows; each
+     evaluation's counts (zeroed after its reset) equal 1000 island and
+     K4/K5 launches and one K6 launch per policy step for the pixel policies
+ 21. PPO at the pixel recipe's shape (multi2px: N = 2, E = 1024, T = 32,
+     R = 4, K = 2, squash, lr 1e-4, kl_target 0.03, grass 0.5, skip 2.0,
+     anneal, 4 epochs x 8 minibatches): three train steps from a fresh
+     learner; every metric finite, the parameters moved, K2 = K4/K5 = 3 *
+     (128 steps + the autoreset tick), K6 = 3 * 33 frames; rollout, GAE,
+     update and reset times (CUDA events), env-steps/s with the learner;
+     then checkpoint.save and restore on the card, every tensor equal
+ 22. PPO at the state recipe's shape (CarRacing-v0, E = 1024, T = 32, R = 4,
+     normalize, width 512, the same shaping): as phase 21, with K1
+ 23. the learner JSON line, the kernels JSON line, the nvidia-smi line, and
+     the result line
 
 The script imports nothing of JAX or of the JAX package.
 """
@@ -181,7 +212,8 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
-from multi_car_racing_tpu_torch import EnvConfig, _cuda, convert  # noqa: E402
+from multi_car_racing_tpu_torch import EnvConfig, _cuda, checkpoint, convert  # noqa: E402
+from multi_car_racing_tpu_torch.learner import evaluate, ppo as lppo  # noqa: E402
 from multi_car_racing_tpu_torch import env as penv, obs as pobs, seeding  # noqa: E402
 from multi_car_racing_tpu_torch.render import pixels  # noqa: E402
 from multi_car_racing_tpu_torch.physics import collide, fused_world  # noqa: E402
@@ -247,6 +279,18 @@ JITTER_SEED = 11
 JITTER_SHIFT, JITTER_TURN = 0.3, 0.01   # world units, rad: about half a pixel each
 CAND_CHUNK = 256                # envs per pass of the plain cull predicate
 PIXEL_E1, PIXEL_E4 = 1024, 512  # envs of the N = 1 CW and N = 4 ego-colour checks
+LEARNER_SEED = 7                # the recorded evaluations' seed
+LEARNER_EPISODES = 100
+LEARNER_Z = 2.58                # two-sided 99% bound on the difference of two means
+LEARNER_NET_OBS = 64            # cars observed per policy in phase 19
+LEARNER_DRIVE = 20              # steps driven before phase 19's observations
+LEARNER_STATE_TOL = 1e-5        # tests/test_torch_networks.py's bars
+LEARNER_PIXEL_TOL = 1e-2
+LEARNER_UPDATES = 3
+LEARNER_WORST = 3               # the lowest-return episodes of each evaluation, reported
+POLICY_NAMES = ("carracing_v0_solved", "pixels_solved", "multi2p", "multi2px")
+CKPT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "multi_car_racing_tpu_torch",
+                        "_build", "chip_smoke_checkpoints")
 GOLDEN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "fixtures",
                           "golden")
 GOLDENS = ("steady_2agent", "warmup_2agent", "cw_1agent", "egocolor_4agent",
@@ -1315,6 +1359,248 @@ def pixel_rollout_phase(smi: str, dev: torch.device, pool) -> dict:
     return out
 
 
+def zero_counts() -> None:
+    fused_world.island_step.launches = fused_world.island_step.contact_launches = 0
+    track_engine.track_pass.launches = track_engine.track_pass_plain.cuda_calls = 0
+    pixels.paint_views.launches = pixels.paint_views_plain.cuda_calls = 0
+    fused_world.world_step_batched.launches = 0
+
+
+def read_counts() -> dict:
+    return {"k1": fused_world.island_step.launches,
+            "k2": fused_world.island_step.contact_launches,
+            "k3": fused_world.world_step_batched.launches,
+            "k4_k5": track_engine.track_pass.launches,
+            "k6": pixels.paint_views.launches,
+            "plain_track_calls": track_engine.track_pass_plain.cuda_calls,
+            "plain_paint_calls": pixels.paint_views_plain.cuda_calls}
+
+
+def check_counts(label: str, counts: dict, steps: int, frames: int, n_agents: int) -> None:
+    """The path's kernels launched once per env step (the island, K1 at N = 1
+    and K2 above; the track pass) and once per frame (K6); every other
+    kernel and plain version on the card never."""
+    island, other = ("k1", "k2") if n_agents == 1 else ("k2", "k1")
+    want = {island: steps, other: 0, "k3": 0, "k4_k5": steps, "k6": frames,
+            "plain_track_calls": 0, "plain_paint_calls": 0}
+    if counts != want:
+        raise AssertionError(f"{label}: launch counts {counts}, expected {want}")
+
+
+def policy_observations(name: str, dev: torch.device):
+    """The observations a committed policy sees on LEARNER_NET_OBS cars of
+    envs driven LEARNER_DRIVE steps on the card (stacked, normalised)."""
+    net, rms, env_cfg, flags, _ = evaluate.load_policy(name, dev)
+    pcfg = lppo.PPOConfig(**flags)
+    envs = LEARNER_NET_OBS // env_cfg.num_agents
+    state = evaluate.episode_state(env_cfg, envs, LEARNER_SEED, dev)
+    actions = cycled_actions(envs, env_cfg.num_agents, dev)
+    obs_now = lppo._observe(env_cfg, pcfg, state)
+    frames = lppo.init_frames(pcfg, obs_now)
+    for t in range(LEARNER_DRIVE):
+        state, _, _ = penv.step(env_cfg, state, actions[t % 8])
+        frames = lppo._push_frames(frames, obs_now)
+        obs_now = lppo._observe(env_cfg, pcfg, state)
+    obs = lppo._stack_obs(frames, obs_now)
+    if rms is not None:
+        obs = lppo._rms_normalize(rms, obs)
+    return net, obs
+
+
+def network_phase(dev: torch.device) -> dict:
+    """Phase 19: each committed policy's network on the card against the
+    same policy on the CPU, on the same observations."""
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 matmuls are enabled: the float32 layers must not use them")
+    out = {}
+    for name in POLICY_NAMES:
+        net, obs = policy_observations(name, dev)
+        cpu_net = evaluate.load_policy(name, "cpu")[0]
+        with torch.no_grad():
+            got = [t.detach().cpu() for t in net(obs)]
+            want = [t.detach() for t in cpu_net(obs.cpu())]
+        pixel = net.obs_type == "pixels"
+        tol = LEARNER_PIXEL_TOL if pixel else LEARNER_STATE_TOL
+        errs = {}
+        for label, g, w in zip(("mean", "log_std", "value"), got, want):
+            err = float((g - w).abs().max())
+            bar = tol * max(1.0, float(w.abs().max()))
+            errs[label] = {"max_abs_err": err, "bar": bar, "max_abs": float(w.abs().max())}
+            if not err <= bar:
+                raise AssertionError(f"{name}: {label} on the card {err:.3g} from the CPU, bar "
+                                     f"{bar:.3g}")
+        out[name] = {"cars": int(obs.shape[0] * obs.shape[1]), **errs}
+        phase(f"{name}: {out[name]['cars']} observations, card vs CPU max |err| mean "
+              f"{errs['mean']['max_abs_err']:.4g} (bar {errs['mean']['bar']:.4g}), value "
+              f"{errs['value']['max_abs_err']:.4g} (bar {errs['value']['bar']:.4g}; "
+              f"max |value| {errs['value']['max_abs']:.4g})")
+    return out
+
+
+def evaluation_phase(smi: str, dev: torch.device) -> dict:
+    """Phase 20: each committed policy evaluated deterministically over
+    LEARNER_EPISODES fresh host-track episodes (seed LEARNER_SEED) on the
+    card, held to its recorded mean by a two-sample bound."""
+    out, specs = {}, evaluate.policy_specs()
+    for name in POLICY_NAMES:
+        rec = specs[name]["record"]
+        net, rms, env_cfg, flags, _ = evaluate.load_policy(name, dev)
+        pcfg = lppo.PPOConfig(num_envs=LEARNER_EPISODES, **flags)
+        t0 = time.perf_counter()
+        state = evaluate.episode_state(env_cfg, LEARNER_EPISODES, LEARNER_SEED, dev)
+        torch.cuda.synchronize()
+        reset_s = time.perf_counter() - t0
+        with torch.no_grad():
+            obs0 = lppo._observe(env_cfg, pcfg, state)
+            obs = lppo._stack_obs(lppo.init_frames(pcfg, obs0), obs0)
+            if rms is not None:
+                obs = lppo._rms_normalize(rms, obs)
+            forward_ms = cuda_ms(lambda: net(obs), 20)
+        eval_fn = evaluate.make_eval_fn(env_cfg, pcfg, LEARNER_EPISODES)
+        zero_counts()
+        t0 = time.perf_counter()
+        res = eval_fn(net, rms, state)
+        s = evaluate.summarize(res)
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        per_episode = res["returns"].mean(-1).cpu()
+        seeds = evaluate.episode_seeds(LEARNER_SEED, LEARNER_EPISODES)
+        worst = [{"episode": i, "track_seed": seeds[i], "return": float(per_episode[i]),
+                  "tiles": res["tiles"][i].tolist(), "n_tiles": int(res["n_tiles"][i]),
+                  "length": int(res["length"][i])}
+                 for i in torch.argsort(per_episode)[:LEARNER_WORST].tolist()]
+        env_steps = -(-env_cfg.max_episode_steps // pcfg.action_repeat) * pcfg.action_repeat
+        check_counts(name, counts, env_steps,
+                     env_steps // pcfg.action_repeat if pcfg.obs_type == "pixels" else 0,
+                     env_cfg.num_agents)
+        bar = LEARNER_Z * float(np.sqrt((rec["std"] ** 2 + s["eval_return_std"] ** 2)
+                                        / LEARNER_EPISODES))
+        miss = abs(s["eval_return"] - rec["mean"])
+        out[name] = {**s, "record_mean": rec["mean"], "record_std": rec["std"],
+                     "record_source": rec["source"], "bar": bar, "miss": miss,
+                     "reset_s": reset_s, "wall_s": wall,
+                     "env_steps_per_s": LEARNER_EPISODES * env_steps / wall,
+                     "forward_ms": forward_ms, "forward_rows": LEARNER_EPISODES *
+                     env_cfg.num_agents, "launches": counts, "worst_episodes": worst}
+        phase(f"{name}: {s['eval_return']:.4f} +- {s['eval_return_std']:.4f} per car over "
+              f"{LEARNER_EPISODES} episodes (min {s['eval_return_min']:.4f}, max "
+              f"{s['eval_return_max']:.4f}, best agent {s['eval_best_agent_return']:.4f}, "
+              f"tiles {s['eval_tiles_frac']:.4f}, length {s['eval_len']:.2f}); recorded "
+              f"{rec['mean']} +- {rec['std']} ({rec['source']}): miss {miss:.4f}, bar "
+              f"{bar:.4f}; {wall:.3f} s = {out[name]['env_steps_per_s']:.1f} env-steps/s on "
+              f"{smi} (reset {reset_s:.3f} s); forward {forward_ms:.4f} ms at "
+              f"{out[name]['forward_rows']} rows; launches {counts}; worst episodes "
+              + "; ".join(f"{w['return']:.1f} ({w['tiles']} of {w['n_tiles']} tiles, track seed "
+                          f"{w['track_seed']})" for w in worst))
+        if not miss <= bar:
+            raise AssertionError(f"{name}: evaluated {s['eval_return']:.4f}, recorded "
+                                 f"{rec['mean']}: the miss {miss:.4f} exceeds {bar:.4f}")
+    return out
+
+
+def train_states_equal(a, b) -> bool:
+    tensors_a = [*a.net.state_dict().values(), *tree_leaves(a.env_state), *tree_leaves(a.pool),
+                 a.generator.get_state()]
+    tensors_b = [*b.net.state_dict().values(), *tree_leaves(b.env_state), *tree_leaves(b.pool),
+                 b.generator.get_state()]
+    oa, ob = a.opt.state_dict(), b.opt.state_dict()
+    tensors_a += [*oa["mu"], *oa["nu"], oa["count"]]
+    tensors_b += [*ob["mu"], *ob["nu"], ob["count"]]
+    for x, y in ((a.obs_rms, b.obs_rms), (a.frames, b.frames)):
+        if (x is None) != (y is None):
+            return False
+    if a.obs_rms is not None:
+        tensors_a += [a.obs_rms[k] for k in sorted(a.obs_rms)]
+        tensors_b += [b.obs_rms[k] for k in sorted(b.obs_rms)]
+    if a.frames is not None:
+        tensors_a.append(a.frames)
+        tensors_b.append(b.frames)
+    return (len(tensors_a) == len(tensors_b) and a.update_i == b.update_i
+            and a.env_cfg == b.env_cfg and a.ppo_cfg == b.ppo_cfg
+            and all(x.device == y.device and torch.equal(x, y)
+                    for x, y in zip(tensors_a, tensors_b)))
+
+
+def ppo_phase(label: str, env_cfg, pcfg, smi: str, dev: torch.device) -> dict:
+    """Phases 21-22: LEARNER_UPDATES PPO train steps from a fresh learner on
+    the card; finite metrics, moved parameters, exact launch counts, stage
+    times; then a checkpoint saved and restored on the card, tensor-equal."""
+    t0 = time.perf_counter()
+    ts = lppo.init_train_state(env_cfg, pcfg, LEARNER_SEED, dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    before = [p.detach().clone() for p in ts.net.parameters()]
+    step = lppo.make_train_step(env_cfg, pcfg)
+    env_steps = pcfg.num_envs * pcfg.rollout_len * pcfg.action_repeat
+    zero_counts()
+    updates = []
+    for u in range(LEARNER_UPDATES):
+        t0 = time.perf_counter()
+        ts, metrics = step(ts)
+        metrics = {k: float(v) for k, v in metrics.items()}
+        wall = time.perf_counter() - t0
+        stages = lppo.stage_ms(step.marks)
+        updates.append({"wall_s": wall, "env_steps_per_s": env_steps / wall,
+                        "stage_ms": stages, **metrics})
+        phase(f"{label} update {u + 1}: {wall:.3f} s = {env_steps / wall:.1f} env-steps/s "
+              f"with the learner on {smi}; rollout {stages['rollout'] / 1e3:.3f} s, GAE "
+              f"{stages['gae'] / 1e3:.3f} s, update {stages['update'] / 1e3:.3f} s, reset "
+              f"{stages['reset'] / 1e3:.3f} s; loss {metrics['loss']:.5g}, v_loss "
+              f"{metrics['v_loss']:.5g}, approx_kl_max {metrics['approx_kl_max']:.4g}, "
+              f"grad_norm_max {metrics['grad_norm_max']:.4g}, skipped_updates "
+              f"{metrics['skipped_updates']:.0f}, nan_envs {metrics['nan_envs']:.0f}, "
+              f"episodes_finished {metrics['episodes_finished']:.0f}")
+        bad = [k for k, v in metrics.items() if not np.isfinite(v)]
+        if bad:
+            raise AssertionError(f"{label}: metrics not finite: {bad}")
+    counts = read_counts()
+    steps = LEARNER_UPDATES * (pcfg.rollout_len * pcfg.action_repeat + 1)   # + reset ticks
+    frames = LEARNER_UPDATES * (pcfg.rollout_len + 1) if pcfg.obs_type == "pixels" else 0
+    check_counts(label, counts, steps, frames, env_cfg.num_agents)
+    moved = max(float((a - b.detach()).abs().max()) for a, b in zip(before, ts.net.parameters()))
+    if not moved > 0 or not all(bool(torch.isfinite(p).all()) for p in ts.net.parameters()):
+        raise AssertionError(f"{label}: parameters did not move or are not finite")
+    path = os.path.join(CKPT_DIR, label.replace(" ", "_"))
+    t0 = time.perf_counter()
+    checkpoint.save(path, ts)
+    back = checkpoint.restore(path, device=dev)
+    torch.cuda.synchronize()
+    ckpt_s = time.perf_counter() - t0
+    same = train_states_equal(ts, back)
+    phase(f"{label}: parameters moved (max |change| {moved:.4g}); launches {counts}; "
+          f"checkpoint save + restore on the card {ckpt_s:.3f} s, every tensor equal: {same}")
+    if not same:
+        raise AssertionError(f"{label}: the restored checkpoint differs from the saved state")
+    return {"envs": pcfg.num_envs, "agents": env_cfg.num_agents, "rollout_len":
+            pcfg.rollout_len, "action_repeat": pcfg.action_repeat, "init_s": init_s,
+            "updates": updates, "launches": counts, "param_max_change": moved,
+            "checkpoint_s": ckpt_s, "checkpoint_equal": same}
+
+
+def learner_phases(smi: str, dev: torch.device) -> dict:
+    phase(f"19/23 the committed policies' networks on the card vs the CPU ({LEARNER_NET_OBS} "
+          f"observations each, after {LEARNER_DRIVE} driven steps)")
+    nets = network_phase(dev)
+    phase(f"20/23 the committed policies evaluated on the card: {LEARNER_EPISODES} fresh "
+          f"host-track episodes each, seed {LEARNER_SEED}, deterministic")
+    t20 = time.perf_counter()
+    evals = evaluation_phase(smi, dev)
+    phase(f"phase 20 took {time.perf_counter() - t20:.1f} s")
+    base = dict(rollout_len=32, action_repeat=4, train_grass_cost=0.5, train_skip_cost=2.0,
+                anneal_lr=True, epochs=4, minibatches=8)
+    phase("21/23 three PPO updates at the pixel recipe's shape (multi2px: N=2, E=1024, T=32, "
+          "R=4, K=2, squash, lr 1e-4, kl_target 0.03)")
+    pixel = ppo_phase("pixel PPO", EnvConfig(num_agents=2), lppo.PPOConfig(
+        num_envs=1024, obs_type="pixels", frame_stack=2, squash_actions=True, lr=1e-4,
+        kl_target=0.03, total_updates=1500, **base), smi, dev)
+    phase("22/23 three PPO updates at the state recipe's shape (CarRacing-v0, E=1024, T=32, "
+          "R=4, normalize, width 512)")
+    state = ppo_phase("state PPO", EnvConfig(num_agents=1, use_random_direction=False,
+                                             backwards_flag=False), lppo.PPOConfig(
+        num_envs=1024, normalize_obs=True, width=512, total_updates=1200, **base), smi, dev)
+    return {"networks": nets, "evaluations": evals, "ppo_pixels": pixel, "ppo_state": state}
+
+
 def report(name: str, source: str, replaces: str, launches: int, max_abs_err: float,
            max_err_over_bar: float, times: dict, **extra) -> dict:
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -1324,7 +1610,7 @@ def report(name: str, source: str, replaces: str, launches: int, max_abs_err: fl
 
 def main() -> int:
     start = time.perf_counter()
-    phase("1/19 device")
+    phase("1/23 device")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs the port on the card only",
               file=sys.stderr)
@@ -1338,7 +1624,7 @@ def main() -> int:
     phase(f"device {kind} | nvidia-smi: {smi} | torch {torch.__version__} "
           f"cuda {torch.version.cuda} | python {sys.version.split()[0]}")
 
-    phase("2/19 build (one nvcc per kernel, started together)")
+    phase("2/23 build (one nvcc per kernel, started together)")
     t0 = time.perf_counter()
     kernels = (fused_world.KERNEL, fused_world.CONTACT_KERNEL, fused_world.SOLVE_KERNEL,
                track_engine.KERNEL, pixels.KERNEL)
@@ -1362,7 +1648,7 @@ def main() -> int:
     cfg = EnvConfig(num_agents=1, use_random_direction=False)
     actions = cycled_actions(E, cfg.num_agents, dev)
 
-    phase(f"3/19 K1 vs plain at E={E} after 20 steps")
+    phase(f"3/23 K1 vs plain at E={E} after 20 steps")
     state = penv.reset_batch(cfg, SEEDS, E)
     for t in range(20):
         state, _, _ = penv.step(cfg, state, actions[t % 8])
@@ -1386,7 +1672,7 @@ def main() -> int:
           f"{KERNEL_TIMING_LAUNCHES} launches); "
           f"{ptx['K1'].get('joints_island', {}).get('registers')} registers")
 
-    phase(f"4/19 small input: {len(SMALL_SEEDS)} envs x {SMALL_STEPS} steps, card vs CPU")
+    phase(f"4/23 small input: {len(SMALL_SEEDS)} envs x {SMALL_STEPS} steps, card vs CPU")
     small = {d: penv.reset_batch(cfg, SMALL_SEEDS, len(SMALL_SEEDS), device=d)
              for d in ("cuda", "cpu")}
     returns = {d: 0.0 for d in small}
@@ -1401,7 +1687,7 @@ def main() -> int:
     if not (ret_dev <= 2e-5 and pos_dev <= 1e-3):
         raise AssertionError("small-input run on the card disagrees with the CPU path")
 
-    phase(f"5/19 N=1 main path: reset_batch E={E} ({len(SEEDS)} tracks) + {WARMUP} "
+    phase(f"5/23 N=1 main path: reset_batch E={E} ({len(SEEDS)} tracks) + {WARMUP} "
           f"warm-up + {T} steps")
     run1 = main_path(cfg, actions, "N=1", smi)
     times1 = kernel_times(cfg, run1, actions)
@@ -1413,7 +1699,7 @@ def main() -> int:
 
     cfg2 = EnvConfig(num_agents=2, use_random_direction=False)
     actions2 = cycled_actions(E, cfg2.num_agents, dev)
-    phase(f"6/19 K2 vs plain at N=2, E={E}, driven until {NEAR_SHARE:.0%} of envs are near")
+    phase(f"6/23 K2 vs plain at N=2, E={E}, driven until {NEAR_SHARE:.0%} of envs are near")
     state = penv.reset_batch(cfg2, SEEDS, E)
     for t in range(NEAR_MAX_STEPS + 1):
         pre = apply_controls(state.cars, actions2[t % 8])
@@ -1475,7 +1761,7 @@ def main() -> int:
         raise AssertionError(f"K2 vs plain (all-near): {id_near} envs' ids, {skid_near} skid "
                              f"flags differ")
 
-    phase("7/19 rear-end ram (N=4, E=1): K2 vs plain at the first step with contact")
+    phase("7/23 rear-end ram (N=4, E=1): K2 vs plain at the first step with contact")
     ram_cfg, ram, ram_act, ram_t = ram_state(dev)
     ram_pre = apply_controls(ram.cars, ram_act)
     k_ram = fused_world.island_step(ram_pre, ram.wheel_on_road, ram.contacts)
@@ -1491,7 +1777,7 @@ def main() -> int:
     if ram_id_miss:
         raise AssertionError("ram: K2's manifold ids differ from the plain version's")
 
-    phase(f"7/19 (cont.) N=4, E={N4_E}, driven until {NEAR_SHARE:.0%} of envs are near: K2 vs "
+    phase(f"7/23 (cont.) N=4, E={N4_E}, driven until {NEAR_SHARE:.0%} of envs are near: K2 vs "
           f"plain, the far pass, and K2 beside K3")
     cfg4 = EnvConfig(num_agents=4, use_random_direction=False)
     actions4 = cycled_actions(N4_E, 4, dev)
@@ -1524,7 +1810,7 @@ def main() -> int:
                                                  pile[2], "K2 vs plain (N=4, > 32 live rows)")
     phase(f"> 32 live rows: envs whose manifold ids differ {id_pile}")
 
-    phase("8/19 determinism: two K2 launches on phase 6's input")
+    phase("8/23 determinism: two K2 launches on phase 6's input")
     fin, ls_in = fused_world.pack_inputs(pre, state.wheel_on_road)
     a = fused_world.launch_contacts(fin, ls_in, cs_pre, cfg2.num_agents)
     b = fused_world.launch_contacts(fin, ls_in, cs_pre, cfg2.num_agents)
@@ -1545,19 +1831,19 @@ def main() -> int:
     # K3's path: world_step_batched on the card, its count set to 0 here and
     # read after phase 11; each call below launches K3 once.
     fused_world.world_step_batched.launches = 0
-    phase(f"9/19 K3 vs plain at N=2, E={E}, full {cfg2.velocity_iters}/"
+    phase(f"9/23 K3 vs plain at N=2, E={E}, full {cfg2.velocity_iters}/"
           f"{cfg2.position_iters}, on phase 6's input (plain tire model, Collide, make_bundle)")
     solve2 = solve_inputs(pre, state.wheel_on_road, cs_pre, 2)
     devs3 = compare_solve(solve2, 2, "K3 vs plain (N=2)")
 
-    phase("10/19 K3 vs plain on phase 7's ram (N=4, E=1) and at N=1, E=4096 (no bundle)")
+    phase("10/23 K3 vs plain on phase 7's ram (N=4, E=1) and at N=1, E=4096 (no bundle)")
     devs3.update({f"ram {f}": v for f, v in compare_solve(
         solve_inputs(ram_pre, ram.wheel_on_road, ram.contacts, 4), 4,
         "K3 vs plain (ram, N=4)").items()})
     devs3.update({f"N=1 {f}": v for f, v in compare_solve(
         solve_inputs(pre1, road1, None, 1), 1, "K3 vs plain (N=1)").items()})
 
-    phase("11/19 K2 vs plain Collide + K3 on phase 6's input")
+    phase("11/23 K2 vs plain Collide + K3 on phase 6's input")
     post2, _, _, _, skid2, man2 = solve2
     k3_cars, (k3_ni, k3_ti) = fused_world.world_step_batched(*solve2[:4], 2)
     live_list_check(solve2[3], E, "K3 on phase 6's input")
@@ -1574,7 +1860,7 @@ def main() -> int:
     if k3_launches != 4:
         raise AssertionError(f"K3 launched {k3_launches} times on its path, expected 4")
 
-    phase(f"12/19 K3 determinism and times at N=2, E={E} on phase 6's input, beside K2 on {smi}")
+    phase(f"12/23 K3 determinism and times at N=2, E={E} on phase 6's input, beside K2 on {smi}")
     same3 = []
     for solve_in in (solve2, solve_inputs(*near_in, 2)):
         fin3, ls3 = fused_world.pack_solve_inputs(*solve_in[:3])
@@ -1595,7 +1881,7 @@ def main() -> int:
         phase(f"K3 on the {name} input:")
         times3_more[name] = solve_times(*args)
 
-    phase(f"13/19 N=2 main path: reset_batch E={E} ({len(SEEDS)} tracks) + {WARMUP} "
+    phase(f"13/23 N=2 main path: reset_batch E={E} ({len(SEEDS)} tracks) + {WARMUP} "
           f"warm-up + {T} steps")
     run2 = main_path(cfg2, actions2, "N=2", smi)
     times2 = kernel_times(cfg2, run2, actions2)
@@ -1632,7 +1918,7 @@ def main() -> int:
                                                       for _, rv, rs in devs_pile.values())},
                 ptxas=ptx["K2"])
 
-    phase(f"14/19 K4/K5 vs plain at E={E}, N=1 and N=2, and E={N4_E}, N=4: a stepped state, "
+    phase(f"14/23 K4/K5 vs plain at E={E}, N=1 and N=2, and E={N4_E}, N=4: a stepped state, "
           f"a spawn tick, lifted wheels, and the cull's edges (on-road, seam, kerb, off-road, "
           f"self-approach, wheels-only); the cull's probes (wheels only, origins only)")
     checks = {**track_phase(cfg, actions), **track_phase(cfg2, actions2),
@@ -1648,26 +1934,27 @@ def main() -> int:
                              "cand_mean": r["cand_mean"], "cand_max": r["cand_max"]}
                          for k, r in checks.items()})
 
-    phase(f"15/19 state-PPO rollout: E={E}, N={ROLLOUT_N}, pool of {len(POOL_SEEDS)} host "
+    phase(f"15/23 state-PPO rollout: E={E}, N={ROLLOUT_N}, pool of {len(POOL_SEEDS)} host "
           f"tracks, chunks of {ROLLOUT_CHUNK} steps, past the time limit")
     rollout = rollout_phase(smi, dev)
 
-    phase("16/19 K6 vs plain: N=2 spawn tick, steady, mid zoom, camera jitter, mixed and "
+    phase("16/23 K6 vs plain: N=2 spawn tick, steady, mid zoom, camera jitter, mixed and "
           "backward at E=4096; N=1 CW; N=4 ego colour; the golden frames")
     pool = penv.make_track_pool(EnvConfig(num_agents=2), POOL_SEEDS, device=dev)
     t16 = time.perf_counter()
     px_checks = pixel_checks(dev, pool)
     phase(f"phase 16 took {time.perf_counter() - t16:.1f} s")
 
-    phase(f"17/19 pixel main path: reset_batch E={E}, N=2 + {WARMUP} warm-up + {T} steps, a "
+    phase(f"17/23 pixel main path: reset_batch E={E}, N=2 + {WARMUP} warm-up + {T} steps, a "
           f"frame after the reset and after every step")
     t17 = time.perf_counter()
     px_run = pixel_main_path(smi, dev)
     phase(f"phase 17 took {time.perf_counter() - t17:.1f} s")
 
-    phase(f"18/19 pixel-PPO env side: E={PPO_E}, N=2, {PPO_CHUNKS} chunks of {PPO_DECISIONS} "
+    phase(f"18/23 pixel-PPO env side: E={PPO_E}, N=2, {PPO_CHUNKS} chunks of {PPO_DECISIONS} "
           f"decisions x {PPO_REPEAT} steps, autoreset, past the time limit")
     px_rollout = pixel_rollout_phase(smi, dev, pool)
+    learner = learner_phases(smi, dev)
     k6 = report(pixels.KERNEL, "multi_car_racing_tpu_torch/csrc/paint_view.cu",
                 PAINT_TPU_KERNEL, px_run["launches"],
                 float(max(r["max_abs_err"] for r in px_checks["checks"].values())),
@@ -1712,7 +1999,8 @@ def main() -> int:
                                                       "k2_ms_same_input", "live_envs")}
                              for name, t in times3_more.items()},
                 ptxas=ptx["K3"])
-    phase(f"19/19 report: every phase passed in {time.perf_counter() - start:.1f} s")
+    phase(f"23/23 report: every phase passed in {time.perf_counter() - start:.1f} s")
+    print(json.dumps({"learner": learner}), flush=True)
     print(json.dumps({"kernels": [k1, k2, k3, k45, k6], "rollout": rollout,
                       "pixel_main_path": {k: v for k, v in px_run.items()},
                       "pixel_rollout": px_rollout}), flush=True)

@@ -19,13 +19,27 @@ and resets finished envs from a pool of host tracks:
     pool = env.make_track_pool(cfg, seeds=range(32))
     state = env.reset_done_envs(cfg, state, pool, torch.Generator("cuda"))
 
+The learner (``learner``: the actor-critic network, PPO and evaluation)
+trains and evaluates policies on those envs, and ``checkpoint`` saves and
+restores a learner mid-run. The four solved checkpoints of the JAX package
+ship as policy files and evaluate by name:
+
+    from multi_car_racing_tpu_torch.learner import evaluate, ppo
+    net, obs_rms, env_cfg, flags, spec = evaluate.load_policy("pixels_solved")
+    state = evaluate.episode_state(env_cfg, num_episodes=100, seed=7)
+    out = evaluate.make_eval_fn(env_cfg, ppo.PPOConfig(num_envs=100, **flags), 100)(
+        net, obs_rms, state)
+    print(evaluate.summarize(out))
+    ts = ppo.init_train_state(env_cfg, ppo.PPOConfig(num_envs=1024), seed=0)
+    ts, metrics = ppo.make_train_step(env_cfg, ts.ppo_cfg)(ts)
+
 Entry points run on CUDA unless the caller passes ``device="cpu"``, where
 every kernel is replaced by its plain PyTorch version. Kernels build with
 nvcc at first use; importing the package builds nothing.
 """
 
-from . import config, convert, env, obs, render
+from . import checkpoint, config, convert, env, learner, obs, render
 from .config import EnvConfig
 
 __version__ = "0.1.0"
-__all__ = ["config", "convert", "env", "obs", "render", "EnvConfig"]
+__all__ = ["checkpoint", "config", "convert", "env", "learner", "obs", "render", "EnvConfig"]

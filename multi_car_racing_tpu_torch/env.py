@@ -366,18 +366,39 @@ def draw_episodes(cfg: C.EnvConfig, num_envs: int, pool_size: int,
     return idx, orders, dirs
 
 
+def episode_over(cfg: C.EnvConfig, state: EnvState) -> torch.Tensor:
+    """(E,) bool: the env is done or at the time limit
+    (``cfg.max_episode_steps``), so the next autoreset replaces it."""
+    return state.done | (state.steps >= cfg.max_episode_steps)
+
+
+def finite_cars(state: EnvState) -> torch.Tensor:
+    """(E,) bool: every car's hull position and velocity is finite. The
+    learner quarantines an env whose solver state went nonfinite."""
+    cars = state.cars
+    return (torch.isfinite(cars.hull_c).all(dim=2).all(dim=1)
+            & torch.isfinite(cars.hull_v).all(dim=2).all(dim=1))
+
+
+def episodes_from_pool(cfg: C.EnvConfig, pool: Track, idx: torch.Tensor,
+                       orders: torch.Tensor, dirs: torch.Tensor) -> EnvState:
+    """Fresh episodes in all E envs: ``reset_from_parts`` on pool tracks
+    ``idx`` with car ``orders`` and directions ``dirs`` (``draw_episodes``)."""
+    return reset_from_parts(cfg, tree_map(lambda x: x.index_select(0, idx), pool),
+                            orders, dirs)
+
+
 def reset_envs_from_pool(cfg: C.EnvConfig, state: EnvState, pool: Track,
                          idx: torch.Tensor, orders: torch.Tensor,
                          dirs: torch.Tensor) -> EnvState:
-    """Fresh episodes (``reset_from_parts`` on pool tracks ``idx`` with
-    ``orders`` and ``dirs``) in the envs where ``done`` or ``steps >=
-    cfg.max_episode_steps``; the other envs keep their state bit for bit.
+    """Fresh episodes (``episodes_from_pool``) in the envs where ``done`` or
+    ``steps >= cfg.max_episode_steps``; the other envs keep their state bit
+    for bit.
 
     As in the JAX package's ``reset_done_envs``, the fresh episode is
     computed for all E envs (one spawn tick) and selected leaf by leaf."""
-    fresh = reset_from_parts(cfg, tree_map(lambda x: x.index_select(0, idx), pool),
-                             orders, dirs)
-    needs = state.done | (state.steps >= cfg.max_episode_steps)
+    fresh = episodes_from_pool(cfg, pool, idx, orders, dirs)
+    needs = episode_over(cfg, state)
 
     def pick(new: torch.Tensor, old: torch.Tensor) -> torch.Tensor:
         return torch.where(needs.view((-1,) + (1,) * (new.dim() - 1)), new, old)

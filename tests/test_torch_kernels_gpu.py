@@ -620,3 +620,88 @@ def test_solve_kernel_is_bit_identical_with_its_live_list_in_any_order():
     assert int(fused_world.launch_solve.live_count) == 4096
     for x, y in zip(a, b):
         assert torch.equal(x, y)
+
+
+# ------------------------------------------------------------------ the learner
+
+POLICY_NAMES = ("carracing_v0_solved", "pixels_solved", "multi2p", "multi2px")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", POLICY_NAMES)
+def test_committed_policy_on_card_matches_cpu(name):
+    """Each committed policy's network on the card (cuDNN's bf16 convolutions
+    for the pixel torso) against the same policy on the CPU, on observations
+    of 8 envs driven 5 steps on the card; tests/test_torch_networks.py's
+    bars: 1e-5 * max(1, |x|) for the state nets, 1e-2 * max(1, max|CPU|) on
+    mean and value for the pixel nets."""
+    _need_card()
+    from multi_car_racing_tpu_torch.learner import evaluate, ppo
+
+    net, rms, env_cfg, flags, _ = evaluate.load_policy(name, "cuda")
+    cpu_net = evaluate.load_policy(name, "cpu")[0]
+    pcfg = ppo.PPOConfig(**flags)
+    state = evaluate.episode_state(env_cfg, 8, 3, "cuda")
+    obs_now = ppo._observe(env_cfg, pcfg, state)
+    frames = ppo.init_frames(pcfg, obs_now)
+    action = torch.tensor([0.0, 0.7, 0.0], device="cuda").expand(8, env_cfg.num_agents, 3)
+    for _ in range(5):
+        state, _, _ = penv.step(env_cfg, state, action)
+        frames = ppo._push_frames(frames, obs_now)
+        obs_now = ppo._observe(env_cfg, pcfg, state)
+    obs = ppo._stack_obs(frames, obs_now)
+    if rms is not None:
+        obs = ppo._rms_normalize(rms, obs)
+    with torch.no_grad():
+        got = [t.detach().cpu() for t in net(obs)]
+        want = [t.detach() for t in cpu_net(obs.cpu())]
+    tol = 1e-2 if flags["obs_type"] == "pixels" else 1e-5
+    for label, g, w in zip(("mean", "log_std", "value"), got, want):
+        assert float((g - w).abs().max()) <= tol * max(1.0, float(w.abs().max())), label
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("obs_type", ["state", "pixels"])
+def test_train_step_on_card(obs_type):
+    """One PPO train step at a small shape on the card: finite metrics, moved
+    parameters, the state's kernels launched (no plain track pass or
+    painter on the card)."""
+    _need_card()
+    from multi_car_racing_tpu_torch.learner import ppo
+
+    cfg = EnvConfig(num_agents=2)
+    pcfg = ppo.PPOConfig(rollout_len=4, num_envs=16, pool_size=4, minibatches=2, epochs=2,
+                         obs_type=obs_type, frame_stack=2, action_repeat=2,
+                         normalize_obs=obs_type == "state", train_skip_cost=2.0,
+                         squash_actions=obs_type == "pixels")
+    ts = ppo.init_train_state(cfg, pcfg, 0, device="cuda")
+    before = [p.detach().clone() for p in ts.net.parameters()]
+    fused_world.island_step.contact_launches = track_engine.track_pass_plain.cuda_calls = 0
+    pixels.paint_views_plain.cuda_calls = 0
+    step = ppo.make_train_step(cfg, pcfg)
+    ts, metrics = step(ts)
+    assert all(np.isfinite(float(v)) for v in metrics.values())
+    assert max(float((a - b.detach()).abs().max()) for a, b in
+               zip(before, ts.net.parameters())) > 0
+    assert fused_world.island_step.contact_launches == 4 * 2 + 1
+    assert track_engine.track_pass_plain.cuda_calls == pixels.paint_views_plain.cuda_calls == 0
+    assert set(ppo.stage_ms(step.marks)) == {"rollout", "gae", "update", "reset"}
+
+
+@pytest.mark.gpu
+def test_pixels_solved_evaluates_on_card():
+    """Ten deterministic episodes of the committed pixel policy on the card:
+    every episode ends (the lap or the time limit) and visits at least half
+    of its track's tiles."""
+    _need_card()
+    from multi_car_racing_tpu_torch.learner import evaluate, ppo
+
+    net, rms, env_cfg, flags, _ = evaluate.load_policy("pixels_solved", "cuda")
+    pcfg = ppo.PPOConfig(num_envs=10, **flags)
+    state = evaluate.episode_state(env_cfg, 10, 7, "cuda")
+    out = evaluate.make_eval_fn(env_cfg, pcfg, 10)(net, rms, state)
+    length = out["length"].cpu()
+    frac = (out["tiles"][:, 0].float() / out["n_tiles"].float()).cpu()
+    assert bool(((length > 100) & (length <= env_cfg.max_episode_steps)).all()), length
+    assert float(frac.min()) >= 0.5, frac
+    assert evaluate.summarize(out)["eval_return"] > 500

@@ -1,0 +1,378 @@
+"""The port's PPO learner (learner/ppo.py) against the JAX package's, on the
+CPU, and its own behaviours (mirroring tests/test_learner.py).
+
+Against JAX:
+- ``_rms_update`` with and without a mask (an all-masked batch is a
+  no-op), ``_skipped_tiles`` on tests/test_learner.py's cases,
+  ``_logp_gauss`` / ``_logp_squashed`` on the same numpy inputs, and
+  ``ClippedAdam`` against optax's ``chain(clip_by_global_norm, adam)`` with
+  the linear schedule over steps that clip, steps that do not, and skipped
+  steps selected away as the train step selects them.
+- One whole train step: tests/test_learner.py's tiny configuration (8/3
+  solver iterations, 4 envs, T = 4, 2 minibatches, 1 epoch) at N = 1 and
+  R = 1, with the state recipe's normalisation, grass and skip costs and
+  annealed learning rate. Both packages start from the same reset state
+  (the port's, read by JAX through the same field names) and the same flax
+  parameters, and the port takes JAX's own draws: the rollout's action
+  noise from the key splits of ppo.py:343 and :363, each epoch's
+  ``permutation(k_ep, B)`` (:563, :605). No env finishes in 4 steps, so the
+  autoreset draws play no part. Bars: every metric within
+  1e-4 * max(1, |x|); obs_rms within 1e-5 * max(1, |x|); parameters within
+  2 * lr per applied update (Adam's first step is lr * sign(g), and a
+  gradient near 0 flips sign on float noise), and fewer than 1% of each
+  leaf's elements more than 1e-5 apart.
+"""
+
+import dataclasses
+from types import SimpleNamespace
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import optax
+import pytest
+import torch
+
+from multi_car_racing_tpu import config as JC
+from multi_car_racing_tpu.learner import ppo as jppo
+from multi_car_racing_tpu.learner.networks import ActorCritic as JaxActorCritic
+
+from multi_car_racing_tpu_torch import EnvConfig, convert, env as penv
+from multi_car_racing_tpu_torch.learner import evaluate, ppo
+
+from test_torch_obs import jax_state
+from torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
+
+METRIC_TOL = 1e-4
+RMS_TOL = 1e-5
+
+
+def _t(x):
+    return torch.from_numpy(np.asarray(x))
+
+
+# ---------------------------------------------------------------- helpers vs JAX
+
+
+def test_rms_update_matches_jax():
+    rng = np.random.RandomState(0)
+    batch = np.concatenate([rng.randn(40, 3), np.full((8, 3), 1e30)]).astype(np.float32)
+    mask = np.concatenate([np.ones(40), np.zeros(8)]).astype(np.float32)
+    rms = dict(mean=rng.randn(3).astype(np.float32), var=rng.uniform(0.5, 2, 3).astype(
+        np.float32), count=np.float32(12.0))
+    trms = {k: _t(v) for k, v in rms.items()}
+    jrms = {k: jnp.asarray(v) for k, v in rms.items()}
+    for m in (mask, None):
+        got = ppo._rms_update(trms, _t(batch[:40] if m is None else batch),
+                              None if m is None else _t(m))
+        want = jppo._rms_update(jrms, jnp.asarray(batch[:40] if m is None else batch),
+                                None if m is None else jnp.asarray(m))
+        for k in rms:
+            np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]), rtol=1e-5,
+                                       atol=1e-6, err_msg=k)
+    # An all-masked batch (NaN rows included) leaves the statistics as they were.
+    nan_batch = np.full((5, 3), np.nan, np.float32)
+    same = ppo._rms_update(trms, _t(nan_batch), torch.zeros(5))
+    for k in rms:
+        assert torch.equal(same[k], trms[k]), k
+
+
+def _tiles_state(visited_idx, n=10, mt=12):
+    v = np.zeros((1, 1, mt), bool)
+    v[0, 0, visited_idx] = True
+    valid = np.zeros((1, mt), bool)
+    valid[0, :n] = True
+    return v, valid, np.asarray([n], np.int32)
+
+
+@pytest.mark.parametrize("visited,skipped", [
+    ([0, 1, 2, 3], 0), ([8, 9, 0, 1], 0), ([0, 1, 2, 4, 5], 1), ([0, 1, 3, 5], 2),
+    (list(range(10)), 0), ([], 0), ([9, 1, 2, 3], 1)])
+def test_skipped_tiles_matches_jax(visited, skipped):
+    v, valid, n = _tiles_state(visited)
+    got = ppo._skipped_tiles(SimpleNamespace(
+        visited=_t(v), track=SimpleNamespace(valid=_t(valid), n_tiles=_t(n))))
+    want = jppo._skipped_tiles(SimpleNamespace(
+        visited=jnp.asarray(v), track=SimpleNamespace(valid=jnp.asarray(valid),
+                                                      n_tiles=jnp.asarray(n))))
+    assert got.dtype == torch.float32
+    assert float(got[0, 0]) == float(want[0, 0]) == skipped
+
+
+def test_logp_matches_jax():
+    rng = np.random.RandomState(3)
+    mean, u = (rng.randn(2, 64, 3) * 2).astype(np.float32)
+    log_std = rng.uniform(-2, 0.5, (64, 3)).astype(np.float32)
+    for tf, jf in ((ppo._logp_gauss, jppo._logp_gauss),
+                   (ppo._logp_squashed, jppo._logp_squashed)):
+        got = tf(_t(mean), _t(log_std), _t(u)).numpy()
+        want = np.asarray(jf(jnp.asarray(mean), jnp.asarray(log_std), jnp.asarray(u)))
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+def test_clipped_adam_matches_optax():
+    """Eight updates of a 2-leaf tree: large gradients (clipped), small ones
+    (not), a NaN gradient and a forced skip, both selected away."""
+    cfg = ppo.PPOConfig(lr=1e-2, max_grad_norm=0.5, anneal_lr=True, total_updates=2,
+                        epochs=2, minibatches=2)
+    rng = np.random.RandomState(4)
+    p0 = [rng.randn(3, 4).astype(np.float32), rng.randn(5).astype(np.float32)]
+    tparams = [torch.nn.Parameter(_t(p.copy())) for p in p0]
+    opt = ppo.ClippedAdam(tparams, cfg)
+    tx = optax.chain(optax.clip_by_global_norm(cfg.max_grad_norm),
+                     optax.adam(optax.linear_schedule(cfg.lr, 0.0, 8)))
+    jparams = [jnp.asarray(p) for p in p0]
+    jstate = tx.init(jparams)
+    for i in range(8):
+        scale = 5.0 if i % 2 else 0.05
+        grads = [(scale * rng.randn(*p.shape)).astype(np.float32) for p in p0]
+        if i == 3:
+            grads[1][2] = np.nan
+        ok = np.isfinite(optax.global_norm([jnp.asarray(g) for g in grads])) and i != 5
+        opt.step([_t(g) for g in grads], torch.tensor(bool(ok)))
+        safe = [jnp.where(ok, jnp.asarray(g), 0.0) for g in grads]
+        updates, new_state = tx.update(safe, jstate, jparams)
+        new_params = optax.apply_updates(jparams, updates)
+        jparams = [jnp.where(ok, n, o) for n, o in zip(new_params, jparams)]
+        jstate = jax.tree_util.tree_map(lambda n, o: jnp.where(ok, n, o), new_state, jstate)
+        for tp, jp in zip(tparams, jparams):
+            np.testing.assert_allclose(tp.detach().numpy(), np.asarray(jp), rtol=1e-6,
+                                       atol=1e-7)
+    assert int(opt.count) == int(jstate[1][0].count) == 6
+
+
+# ------------------------------------------------------------ the env helpers
+
+
+def test_env_helpers_for_the_learner():
+    cfg = EnvConfig(num_agents=2, velocity_iters=8, position_iters=3, max_episode_steps=5)
+    pool = penv.make_track_pool(cfg, (0, 1, 2), device="cpu")
+    g = torch.Generator().manual_seed(3)
+    draws = penv.draw_episodes(cfg, 4, 3, g)
+    fresh = penv.episodes_from_pool(cfg, pool, *draws)
+    assert torch.equal(fresh.track.xy, pool.xy[draws[0]])
+    assert penv.finite_cars(fresh).all() and not penv.episode_over(cfg, fresh).any()
+    # reset_envs_from_pool with every env over is episodes_from_pool.
+    over = fresh.replace(done=torch.ones(4, dtype=torch.bool))
+    again = penv.reset_envs_from_pool(cfg, over, pool, *draws)
+    assert torch.equal(again.cars.hull_c, fresh.cars.hull_c)
+    hull_v = fresh.cars.hull_v.clone()
+    hull_v[2, 1, 0] = float("inf")
+    bad = fresh.replace(cars=fresh.cars.replace(hull_v=hull_v),
+                        steps=torch.tensor([0, 5, 1, 9], dtype=torch.int32))
+    assert penv.finite_cars(bad).tolist() == [True, True, False, True]
+    assert penv.episode_over(cfg, bad).tolist() == [False, True, False, True]
+
+
+# ------------------------------------------------- one train step against JAX's
+
+T_PAR, E_PAR = 4, 4
+
+
+def _parity_cfgs():
+    kw = dict(rollout_len=T_PAR, num_envs=E_PAR, pool_size=2, minibatches=2, epochs=1,
+              normalize_obs=True, train_grass_cost=0.5, train_skip_cost=2.0, anneal_lr=True)
+    return (EnvConfig(num_agents=1, velocity_iters=8, position_iters=3),
+            ppo.PPOConfig(**kw),
+            JC.EnvConfig(num_agents=1, velocity_iters=8, position_iters=3, solver="xla"),
+            jppo.PPOConfig(**kw))
+
+
+def _jax_draws(key, jpcfg, n_agents):
+    """The normals and permutations JAX's train_step draws from ``key``."""
+    _, k_roll, _, k_perm = jax.random.split(key, 4)
+    noise, k = [], k_roll
+    for _ in range(jpcfg.rollout_len):
+        k, k_act = jax.random.split(k)
+        noise.append(np.asarray(jax.random.normal(k_act, (jpcfg.num_envs, n_agents, 3))))
+    B = jpcfg.rollout_len * jpcfg.num_envs * n_agents
+    perm = [np.asarray(jax.random.permutation(k_ep, B))
+            for k_ep in jax.random.split(k_perm, jpcfg.epochs)]
+    return {"noise": torch.from_numpy(np.stack(noise)),
+            "perm": torch.from_numpy(np.stack(perm)).long()}
+
+
+def test_one_train_step_matches_jax():
+    cfg, pcfg, jcfg, jpcfg = _parity_cfgs()
+    state = penv.reset_batch(cfg, range(E_PAR), E_PAR, device="cpu")
+    tree = convert.env_state_to_numpy(state)
+    host = jax_state(tree)
+    pool_tree = {k: v[:2] for k, v in tree["track"].items()}
+
+    jnet = JaxActorCritic(obs_type="state", width=jpcfg.width)
+    params = jnet.init(jax.random.PRNGKey(1), jnp.zeros((E_PAR, 1, 38)))
+    key = jax.random.PRNGKey(0)
+    jts = jppo.TrainState(
+        params=params, opt_state=jppo.optimizer(jpcfg).init(params), env_state=host,
+        pool=jax.tree_util.tree_map(lambda x: x[:2], host.track), key=key,
+        update_i=jnp.asarray(0, jnp.int32), obs_rms=jppo._rms_init(38), frames=None)
+    jts2, jm = jax.jit(jppo.make_train_step(jcfg, jpcfg))(jts)
+    jm = {k: float(v) for k, v in jm.items()}
+
+    net, _ = convert.policy_from_numpy(jax.device_get(params), obs_type="state",
+                                       width=pcfg.width, frame_stack=1, device="cpu")
+    ts = ppo.TrainState(
+        net=net, opt=ppo.ClippedAdam(net.parameters(), pcfg), env_state=state,
+        pool=convert.track_from_numpy(pool_tree, device="cpu"),
+        generator=torch.Generator().manual_seed(0), update_i=0, env_cfg=cfg, ppo_cfg=pcfg,
+        obs_rms=ppo._rms_init(38, "cpu"))
+    ts2, m = ppo.make_train_step(cfg, pcfg)(ts, draws=_jax_draws(key, jpcfg, 1))
+    m = {k: float(v) for k, v in m.items()}
+
+    assert m["episodes_finished"] == jm["episodes_finished"] == 0.0     # no autoreset
+    assert not bool(np.asarray(jts2.env_state.done).any())
+    assert m.keys() == jm.keys()
+    for k, want in jm.items():
+        assert abs(m[k] - want) <= METRIC_TOL * max(1.0, abs(want)), (k, m[k], want)
+    applied = pcfg.epochs * pcfg.minibatches - m["skipped_updates"]
+    assert applied == 2
+    back, rms = convert.policy_to_numpy(ts2.net, ts2.obs_rms)
+    flat_j = jax.tree_util.tree_leaves_with_path(jax.device_get(jts2.params))
+    flat_t = jax.tree_util.tree_leaves_with_path(back)
+    for (path, a), (_, b) in zip(flat_j, flat_t):
+        assert np.abs(a - b).max() <= 2 * pcfg.lr * applied, path
+        assert np.mean(np.abs(a - b) > 1e-5) < 0.01, path     # sign flips stay rare
+    for k in ("mean", "var", "count"):
+        want = np.asarray(jts2.obs_rms[k])
+        assert np.abs(rms[k] - want).max() <= RMS_TOL * max(1.0, float(np.abs(want).max())), k
+    assert ts2.update_i == 1 and int(ts2.opt.count) == 2
+    # The env went on from where JAX's went: the same tiles, the cars together.
+    assert np.array_equal(ts2.env_state.tile_visited_count.numpy(),
+                          np.asarray(jts2.env_state.tile_visited_count))
+    np.testing.assert_allclose(ts2.env_state.cars.hull_c.numpy(),
+                               np.asarray(jts2.env_state.cars.hull_c), rtol=0, atol=1e-3)
+
+
+# -------------------------------------------- the port's own learner behaviours
+
+
+def _tiny(n_agents=2, n_envs=4, **kw):
+    env_kw = {k: kw.pop(k) for k in ("max_episode_steps",) if k in kw}
+    cfg = EnvConfig(num_agents=n_agents, velocity_iters=8, position_iters=3, **env_kw)
+    pcfg = ppo.PPOConfig(**{**dict(rollout_len=4, num_envs=n_envs, pool_size=2,
+                                   minibatches=2, epochs=1), **kw})
+    return cfg, pcfg
+
+
+def _params(ts):
+    return [p.detach().clone() for p in ts.net.parameters()]
+
+
+def _moved(before, ts):
+    return max(float((a - b.detach()).abs().max()) for a, b in zip(before, ts.net.parameters()))
+
+
+def _finite(ts):
+    return all(bool(torch.isfinite(p).all()) for p in ts.net.parameters())
+
+
+def test_train_step_updates_params():
+    cfg, pcfg = _tiny()
+    ts = ppo.init_train_state(cfg, pcfg, 0, device="cpu")
+    p0 = _params(ts)
+    ts2, metrics = ppo.make_train_step(cfg, pcfg)(ts)
+    assert all(np.isfinite(float(v)) for v in metrics.values())
+    assert _moved(p0, ts2) > 0 and ts2.update_i == 1
+
+
+def test_value_loss_falls_over_six_updates():
+    cfg, pcfg = _tiny(n_envs=8)
+    ts = ppo.init_train_state(cfg, pcfg, 1, device="cpu")
+    step = ppo.make_train_step(cfg, pcfg)
+    losses = []
+    for _ in range(6):
+        ts, metrics = step(ts)
+        losses.append(float(metrics["v_loss"]))
+    assert losses[-1] < losses[0], losses
+
+
+def test_frame_stacking_pixels():
+    cfg, pcfg = _tiny(n_agents=1, n_envs=2, rollout_len=2, minibatches=1, obs_type="pixels",
+                      frame_stack=2, action_repeat=2, train_step_cost=0.05,
+                      train_step_cost_start=1, train_step_cost_ramp=2)
+    ts = ppo.init_train_state(cfg, pcfg, 0, device="cpu")
+    assert tuple(ts.frames.shape) == (2, 1, 96, 96, 3) and ts.frames.dtype == torch.uint8
+    assert ts.net.torso.convs[0].weight.shape[1] == 6
+    p0 = _params(ts)
+    ts2, metrics = ppo.make_train_step(cfg, pcfg)(ts)
+    assert np.isfinite(float(metrics["loss"])) and _moved(p0, ts2) > 0
+    assert int(ts2.frames.sum()) > 0                   # the buffer advanced
+    eval_cfg = dataclasses.replace(cfg, max_episode_steps=6)
+    state = evaluate.episode_state(eval_cfg, 2, 5, device="cpu")
+    out = evaluate.make_eval_fn(eval_cfg, pcfg, 2)(ts2.net, ts2.obs_rms, state)
+    assert np.isfinite(evaluate.summarize(out)["eval_return"])
+
+
+def test_all_envs_finished_no_nan():
+    """Every env past the time limit inside one rollout must not NaN the update."""
+    cfg, pcfg = _tiny(max_episode_steps=3, rollout_len=6, normalize_obs=True,
+                      train_grass_cost=0.5, train_skip_cost=2.0)
+    ts = ppo.init_train_state(cfg, pcfg, 0, device="cpu")
+    step = ppo.make_train_step(cfg, pcfg)
+    for _ in range(3):
+        ts, metrics = step(ts)
+        for k in ("loss", "pg_loss", "v_loss"):
+            assert np.isfinite(float(metrics[k])), k
+        assert float(metrics["episodes_finished"]) == 4
+        assert _finite(ts)
+        assert torch.isfinite(ts.obs_rms["mean"]).all() and torch.isfinite(ts.obs_rms["var"]).all()
+
+
+def test_nan_env_quarantined():
+    """A nonfinite env is marked done and reset, counted in nan_envs, and
+    every loss, parameter and statistic stays finite."""
+    cfg, pcfg = _tiny(normalize_obs=True, action_repeat=2, train_grass_cost=0.5,
+                      train_skip_cost=2.0)
+    ts = ppo.init_train_state(cfg, pcfg, 0, device="cpu")
+    cars = ts.env_state.cars
+    hull_c, hull_v = cars.hull_c.clone(), cars.hull_v.clone()
+    hull_c[1], hull_v[1] = float("nan"), float("nan")
+    ts = dataclasses.replace(ts, env_state=ts.env_state.replace(
+        cars=cars.replace(hull_c=hull_c, hull_v=hull_v)))
+    step = ppo.make_train_step(cfg, pcfg)
+    ts, metrics = step(ts)
+    assert float(metrics["nan_envs"]) >= 1.0
+    for k in ("loss", "pg_loss", "v_loss", "mean_step_reward", "mean_value", "ep_return"):
+        assert np.isfinite(float(metrics[k])), k
+    assert _finite(ts)
+    assert torch.isfinite(ts.obs_rms["mean"]).all() and torch.isfinite(ts.obs_rms["var"]).all()
+    assert torch.isfinite(ts.env_state.cars.hull_c).all()     # the autoreset replaced it
+    ts, metrics = step(ts)
+    assert np.isfinite(float(metrics["loss"]))
+
+
+def test_kl_early_stop_masks_updates():
+    cfg, pcfg = _tiny(n_agents=1, minibatches=4, epochs=2, kl_target=1e-9)
+    ts = ppo.init_train_state(cfg, pcfg, 0, device="cpu")
+    p0 = _params(ts)
+    ts, metrics = ppo.make_train_step(cfg, pcfg)(ts)
+    skipped = float(metrics["skipped_updates"])
+    assert 1.0 <= skipped < 8.0                          # the first minibatch applies
+    assert int(ts.opt.count) == 8 - skipped             # skipped updates leave Adam's count
+    assert _moved(p0, ts) > 0 and np.isfinite(float(metrics["loss"]))
+
+
+def test_squashed_action_head():
+    u = torch.tensor([[0.3, -1.2, 2.0], [0.0, 0.5, -0.7]])
+    mean, log_std = torch.zeros(2, 3), torch.full((2, 3), -0.5)
+    expect = ppo._logp_gauss(mean, log_std, u) - torch.log(1.0 - torch.tanh(u) ** 2).sum(-1)
+    np.testing.assert_allclose(ppo._logp_squashed(mean, log_std, u).numpy(), expect.numpy(),
+                               rtol=1e-5)
+    cfg, pcfg = _tiny(n_agents=1, squash_actions=True)
+    ts = ppo.init_train_state(cfg, pcfg, 0, device="cpu")
+    ts, metrics = ppo.make_train_step(cfg, pcfg)(ts)
+    assert np.isfinite(float(metrics["loss"])) and _finite(ts)
+    a = ppo.squash_env_action(torch.tensor([[5.0, -5.0, 0.1]]))[0]
+    assert -1 <= a[0] <= 1 and 0 <= a[1] <= 1 and 0 <= a[2] <= 1
+
+
+def test_init_train_state_draws_from_its_pool():
+    cfg, pcfg = _tiny(n_envs=6, pool_size=3)
+    ts = ppo.init_train_state(cfg, pcfg, 2, device="cpu")
+    pool_xy = ts.pool.xy[:, :4].reshape(3, -1)
+    for e in range(6):
+        assert any(torch.equal(ts.env_state.track.xy[e, :4].reshape(-1), p) for p in pool_xy)
+    again = ppo.init_train_state(cfg, pcfg, 2, device="cpu")
+    assert torch.equal(ts.env_state.cars.hull_c, again.env_state.cars.hull_c)
+    assert all(torch.equal(a, b) for a, b in zip(ts.net.parameters(), again.net.parameters()))
+    assert ts.obs_rms is None and ts.frames is None and ts.update_i == 0
