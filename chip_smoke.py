@@ -192,14 +192,35 @@ on_grass, count and nearest_beta equal, bonus within 2e-5.
      then checkpoint.save and restore on the card, every tensor equal
  22. PPO at the state recipe's shape (CarRacing-v0, E = 1024, T = 32, R = 4,
      normalize, width 512, the same shaping): as phase 21, with K1
- 23. the learner JSON line, the kernels JSON line, the nvidia-smi line, and
-     the result line
+ 23. the Gym facade (gym_api.make) on the card, MultiCarRacing-v0 (K2) and
+     CarRacing-v0 (K1): reset with a seed, 100 steps of cycled actions
+     through step(); launches (zeroed after the reset) exactly one island,
+     one K4/K5 and one K6 per step and no other; every 25th observation, the
+     reset's and the last byte-equal to the plain painter on the card;
+     facade steps per second
+ 24. the 600x400 rgb_array painter (render.raster.render_observation, plain
+     torch ops: JAX paints it with XLA, not Pallas): the rgb_array_skid
+     golden state's frame with skid trails byte-equal to the fixture (0
+     differing pixels), ms per frame; a CarRacing-v0 facade launched 30
+     steps and braked 5: its skid segments counted, its frame byte-equal to
+     the same state's on the CPU, trail pixels counted, a warm frame timed
+ 25. monitor.Monitor around a CarRacing-v0 facade: one 10-step episode cut
+     by the TimeLimit; stats.json, and a video when an encoder is installed
+ 26. python -m multi_car_racing_tpu_torch.train as a subprocess: 3 updates
+     at CarRacing-v0, E = 256, an 8-episode evaluation, a checkpoint and a
+     JSONL log, then --resume for one more update (train.main in this
+     process); every row finite, the updates 1, 2, 3 (+ the eval row), 4;
+     scripts/curve.py reads the log
+ 27. the learner JSON line, the facade JSON line, the kernels JSON line,
+     the nvidia-smi line, and the result line
 
 The script imports nothing of JAX or of the JAX package.
 """
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import os
 import subprocess
@@ -215,7 +236,8 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from multi_car_racing_tpu_torch import EnvConfig, _cuda, checkpoint, convert  # noqa: E402
 from multi_car_racing_tpu_torch.learner import evaluate, ppo as lppo  # noqa: E402
 from multi_car_racing_tpu_torch import env as penv, obs as pobs, seeding  # noqa: E402
-from multi_car_racing_tpu_torch.render import pixels  # noqa: E402
+from multi_car_racing_tpu_torch import gym_api, monitor, train  # noqa: E402
+from multi_car_racing_tpu_torch.render import pixels, raster  # noqa: E402
 from multi_car_racing_tpu_torch.physics import collide, fused_world  # noqa: E402
 from multi_car_racing_tpu_torch.physics import tire, track_cases, track_engine  # noqa: E402
 from multi_car_racing_tpu_torch.physics import world  # noqa: E402
@@ -295,6 +317,16 @@ GOLDEN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "
                           "golden")
 GOLDENS = ("steady_2agent", "warmup_2agent", "cw_1agent", "egocolor_4agent",
            "backwards_flag")
+# Phases 23-26: the user entry points.
+FACADE_STEPS = 100              # facade steps per env id (cycled actions)
+FACADE_CHECK_EVERY = 25         # every 25th observation held against the plain painter
+FACADE_LAUNCH_STEPS = 30        # gas steps before the braking frame
+FACADE_BRAKE_STEPS = 5
+MONITOR_STEPS = 10
+SMOKE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "multi_car_racing_tpu_torch",
+                         "_build", "chip_smoke_entry_points")
+TRAIN_ARGS = ("--carracing-v0", "--obs", "state", "--num-envs", "256", "--eval-every", "3",
+              "--eval-episodes", "8", "--seed", "7")
 # Phase 14: learner/ppo.py's pixel rollout at the multi2px shape.
 PPO_E = 1024
 PPO_DECISIONS = 32              # decisions per chunk
@@ -1578,27 +1610,210 @@ def ppo_phase(label: str, env_cfg, pcfg, smi: str, dev: torch.device) -> dict:
 
 
 def learner_phases(smi: str, dev: torch.device) -> dict:
-    phase(f"19/23 the committed policies' networks on the card vs the CPU ({LEARNER_NET_OBS} "
+    phase(f"19/27 the committed policies' networks on the card vs the CPU ({LEARNER_NET_OBS} "
           f"observations each, after {LEARNER_DRIVE} driven steps)")
     nets = network_phase(dev)
-    phase(f"20/23 the committed policies evaluated on the card: {LEARNER_EPISODES} fresh "
+    phase(f"20/27 the committed policies evaluated on the card: {LEARNER_EPISODES} fresh "
           f"host-track episodes each, seed {LEARNER_SEED}, deterministic")
     t20 = time.perf_counter()
     evals = evaluation_phase(smi, dev)
     phase(f"phase 20 took {time.perf_counter() - t20:.1f} s")
     base = dict(rollout_len=32, action_repeat=4, train_grass_cost=0.5, train_skip_cost=2.0,
                 anneal_lr=True, epochs=4, minibatches=8)
-    phase("21/23 three PPO updates at the pixel recipe's shape (multi2px: N=2, E=1024, T=32, "
+    phase("21/27 three PPO updates at the pixel recipe's shape (multi2px: N=2, E=1024, T=32, "
           "R=4, K=2, squash, lr 1e-4, kl_target 0.03)")
     pixel = ppo_phase("pixel PPO", EnvConfig(num_agents=2), lppo.PPOConfig(
         num_envs=1024, obs_type="pixels", frame_stack=2, squash_actions=True, lr=1e-4,
         kl_target=0.03, total_updates=1500, **base), smi, dev)
-    phase("22/23 three PPO updates at the state recipe's shape (CarRacing-v0, E=1024, T=32, "
+    phase("22/27 three PPO updates at the state recipe's shape (CarRacing-v0, E=1024, T=32, "
           "R=4, normalize, width 512)")
     state = ppo_phase("state PPO", EnvConfig(num_agents=1, use_random_direction=False,
                                              backwards_flag=False), lppo.PPOConfig(
         num_envs=1024, normalize_obs=True, width=512, total_updates=1200, **base), smi, dev)
     return {"networks": nets, "evaluations": evals, "ppo_pixels": pixel, "ppo_state": state}
+
+
+def facade_phase(env_id: str, smi: str, dev: torch.device) -> dict:
+    """Phase 23: ``gym_api.make(env_id)`` on the card: reset with a seed,
+    FACADE_STEPS steps of cycled actions through ``step`` (counts set to 0
+    after the reset, read after the last step: one island, one K4/K5 and
+    one K6 launch per step, nothing else), facade steps per second; then
+    every FACADE_CHECK_EVERY-th observation, the reset's and the last,
+    against the plain painter on the card, byte for byte."""
+    env = gym_api.make(env_id, verbose=0)
+    n = env.num_agents
+    actions = cycled_actions(1, n, dev)[:, 0].cpu().numpy()             # (8, N, 3)
+    env.seed(0)
+    t0 = time.perf_counter()
+    first = env.reset()
+    reset_s = time.perf_counter() - t0
+    held = [(env.state, first)]
+    zero_counts()
+    ret = np.zeros(n)
+    t0 = time.perf_counter()
+    for t in range(FACADE_STEPS):
+        o, r, done, info = env.step(actions[t % 8])
+        ret += r
+        if (t + 1) % FACADE_CHECK_EVERY == 0 or t + 1 == FACADE_STEPS:
+            held.append((env.state, o))
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    check_counts(f"facade {env_id}", counts, FACADE_STEPS, FACADE_STEPS, n)
+    if first.shape != (n, 96, 96, 3) or o.dtype != np.uint8 or not np.isfinite(ret).all():
+        raise AssertionError(f"facade {env_id}: observation {first.shape} {o.dtype}, returns "
+                             f"{ret}")
+    bad = 0
+    for st, ob in held:
+        plain = pixels.paint_views_plain(*pixels.paint_inputs(env.env.cfg, st))[0].cpu().numpy()
+        bad += int((plain != ob).any(-1).sum())
+    out = {"env_id": env_id, "agents": n, "steps": FACADE_STEPS, "reset_s": reset_s,
+           "wall_s": wall, "steps_per_s": FACADE_STEPS / wall, "launches": counts,
+           "checked_frames": len(held), "differing_pixels": bad,
+           "return": ret.tolist(), "tiles": [int(x) for x in env.tile_visited_count],
+           "track_length": env.track_length}
+    phase(f"facade {env_id}: reset {reset_s:.3f} s; {FACADE_STEPS} steps in {wall:.4f} s = "
+          f"{FACADE_STEPS / wall:.2f} facade steps/s on {smi}; launches {counts}; "
+          f"{len(held)} observations vs the plain painter on the card, differing pixels {bad}; "
+          f"return {ret.round(4).tolist()}, tiles {out['tiles']} of {env.track_length}")
+    if bad:
+        raise AssertionError(f"facade {env_id}: {bad} observation pixels differ from the plain "
+                             f"painter's")
+    return out
+
+
+def rgb_array_phase(smi: str, dev: torch.device) -> dict:
+    """Phase 24: the 600x400 rgb_array painter on the card: the golden
+    state's frame byte-equal to tests/fixtures/golden/rgb_array_skid.npz
+    (0 differing pixels, or the phase fails); then a CarRacing-v0 facade
+    launched FACADE_LAUNCH_STEPS steps and braked FACADE_BRAKE_STEPS through
+    ``step``: its skid segments counted, its rgb_array frame timed (warm
+    and steady) and byte-equal to the same state's frame on the CPU."""
+    d = np.load(os.path.join(GOLDEN_DIR, "rgb_array_skid.npz"))
+    meta = json.loads(str(d["meta"]))
+    st = convert.env_state_from_leaves([d[f"leaf_{i}"][None] for i in range(meta["n_leaves"])],
+                                       device=dev)
+    cfg = EnvConfig(**meta["cfg"])
+    frame = raster.render_observation(cfg, st, 600, 400, draw_particles=True)[0].cpu().numpy()
+    golden_bad = int((frame != d["frame"]).any(-1).sum())
+    steady_ms = cuda_ms(lambda: raster.render_observation(cfg, st, 600, 400,
+                                                          draw_particles=True), 5)
+    phase(f"rgb_array golden frame on the card: {golden_bad} pixels differ from the fixture; "
+          f"{steady_ms:.3f} ms per 600x400 frame of 2 views (steady, CUDA events, 5 frames)")
+    if golden_bad:
+        raise AssertionError(f"rgb_array: {golden_bad} pixels differ from the golden frame")
+    env = gym_api.make("CarRacing-v0", verbose=0)
+    env.seed(0)
+    env.reset()
+    warm_ms = cuda_ms(lambda: env.render("rgb_array"), 2)
+    gas = torch.tensor([[[0.0, 1.0, 0.0]]], device=dev)
+    for _ in range(FACADE_LAUNCH_STEPS):
+        env.env._state, _, _ = penv.step(env.env.cfg, env.state, gas)
+    launched = int(env.state.skid.valid.sum())
+    counts = []
+    for _ in range(FACADE_BRAKE_STEPS):
+        env.step([0.0, 0.0, 1.0])
+        counts.append(int(env.state.skid.valid.sum()))
+    braked = env.render("rgb_array")
+    cpu_state = tree_map(lambda x: x.cpu(), env.state)
+    cpu_frame = raster.render_observation(env.env.cfg, cpu_state, 600, 400,
+                                          draw_particles=True)[0].numpy()
+    cpu_bad = int((braked != cpu_frame).any(-1).sum())
+    no_trails = raster.render_observation(env.env.cfg, env.state, 600, 400)[0].cpu().numpy()
+    trail_px = int((braked != no_trails).any(-1).sum())
+    out = {"golden_differing_pixels": golden_bad, "steady_ms": steady_ms, "warm_ms": warm_ms,
+           "segments_after_launch": launched, "segments_per_brake_step": counts,
+           "trail_pixels": trail_px, "card_vs_cpu_differing_pixels": cpu_bad}
+    phase(f"braking: {launched} segments after a {FACADE_LAUNCH_STEPS}-step launch, then "
+          f"{counts} over {FACADE_BRAKE_STEPS} brake steps; {trail_px} trail pixels in the "
+          f"frame; card vs CPU frame differing pixels {cpu_bad}; warm frame {warm_ms:.3f} ms")
+    if not (counts[-1] > launched and trail_px > 0) or cpu_bad:
+        raise AssertionError(f"rgb_array after braking: {out}")
+    return out
+
+
+def monitor_phase(dev: torch.device) -> dict:
+    """Phase 25: ``monitor.Monitor`` around a CarRacing-v0 facade on the
+    card: one episode of MONITOR_STEPS steps (the TimeLimit cut), a video
+    when this Python has an encoder, stats.json always."""
+    encoders = monitor.encoders()
+    out_dir = os.path.join(SMOKE_DIR, "monitor")
+    env = monitor.Monitor(gym_api.make("CarRacing-v0", verbose=0), out_dir, force=True,
+                          video_callable=(lambda i: True) if encoders else (lambda i: False))
+    env.env.max_episode_steps = MONITOR_STEPS          # the TimeLimit inside the Monitor
+    env.seed(3)
+    env.reset()
+    t0 = time.perf_counter()
+    done = False
+    while not done:
+        _, _, done, info = env.step([0.0, 0.3, 0.0])
+    env.close()
+    wall = time.perf_counter() - t0
+    stats = json.load(open(os.path.join(out_dir, "stats.json")))
+    files = stats["episode_files"]
+    size = os.path.getsize(os.path.join(out_dir, files[0])) if files[0] else 0
+    phase(f"Monitor: encoders {encoders}; episode lengths {stats['episode_lengths']}, files "
+          f"{files} ({size} bytes), {wall:.3f} s for {MONITOR_STEPS} steps with frames")
+    if stats["episode_lengths"] != [MONITOR_STEPS] or not info.get("TimeLimit.truncated"):
+        raise AssertionError(f"Monitor: stats {stats}, info {info}")
+    if encoders and not size:
+        raise AssertionError("Monitor: an encoder is present but no video was written")
+    return {"encoders": encoders, "episode_lengths": stats["episode_lengths"],
+            "episode_files": files, "video_bytes": size, "wall_s": wall}
+
+
+def _train_cli(args: list, label: str) -> tuple[str, float]:
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "multi_car_racing_tpu_torch.train", *args],
+                         cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+                         text=True, timeout=300)
+    wall = time.perf_counter() - t0
+    if out.returncode != 0:
+        raise AssertionError(f"train.py ({label}) exited {out.returncode}: "
+                             f"{out.stderr[-2000:]}")
+    return out.stdout, wall
+
+
+def train_cli_phase() -> dict:
+    """Phase 26: ``python -m multi_car_racing_tpu_torch.train`` on the card
+    as a user runs it: 3 updates at CarRacing-v0, E = 256, an 8-episode
+    evaluation at update 3, checkpoint and JSONL log; then ``--resume`` for
+    one more update through ``train.main`` in this process. Every row
+    finite, the resume at update 3, and scripts/curve.py reads the log."""
+    os.makedirs(SMOKE_DIR, exist_ok=True)
+    log, ck = os.path.join(SMOKE_DIR, "train.jsonl"), os.path.join(SMOKE_DIR, "ckpt")
+    if os.path.exists(log):
+        os.remove(log)
+    first, wall1 = _train_cli([*TRAIN_ARGS, "--updates", "3", "--checkpoint", ck,
+                               "--log", log], "3 updates")
+    # The resume runs the same entry point in this process (a second
+    # process start costs ~10 s of this phase's budget).
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        train.main([*TRAIN_ARGS, "--updates", "1", "--resume", ck, "--log", log])
+    second, wall2 = buf.getvalue(), time.perf_counter() - t0
+    rows = [json.loads(line) for line in open(log)]
+    bad = [(r.get("update"), k) for r in rows for k, v in r.items()
+           if isinstance(v, float) and not np.isfinite(v)]
+    updates = [r["update"] for r in rows]
+    curve = subprocess.run([sys.executable, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "scripts", "curve.py"), log], capture_output=True, text=True, timeout=60)
+    evals = [r for r in rows if "eval_return" in r]
+    train_rows = [r for r in rows if "loss" in r]
+    for line in (first + second).strip().splitlines():
+        phase(f"train.py | {line}")
+    phase(f"train.py: 3 updates + eval in {wall1:.2f} s (with the process's start), resume + "
+          f"1 update in {wall2:.2f} s (train.main in this process); rows {updates}; curve.py: "
+          f"{curve.stdout.strip().splitlines()[-1] if curve.stdout.strip() else curve.stderr}")
+    if bad or updates != [1, 2, 3, 3, 4] or "resumed from" not in second or not evals:
+        raise AssertionError(f"train.py: non-finite {bad}, updates {updates}")
+    if curve.returncode != 0 or "| 3 |" not in curve.stdout:
+        raise AssertionError(f"curve.py did not read the log: {curve.stdout} {curve.stderr}")
+    return {"wall_s": wall1, "resume_in_process_s": wall2, "updates": updates,
+            "env_steps_per_sec": [r.get("env_steps_per_sec") for r in train_rows],
+            "update_s": [r["update_s"] for r in train_rows],
+            "eval": {k: evals[0][k] for k in ("eval_return", "eval_return_std", "eval_len",
+                                              "eval_tiles_frac", "eval_episodes")}}
 
 
 def report(name: str, source: str, replaces: str, launches: int, max_abs_err: float,
@@ -1610,7 +1825,7 @@ def report(name: str, source: str, replaces: str, launches: int, max_abs_err: fl
 
 def main() -> int:
     start = time.perf_counter()
-    phase("1/23 device")
+    phase("1/27 device")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs the port on the card only",
               file=sys.stderr)
@@ -1624,7 +1839,7 @@ def main() -> int:
     phase(f"device {kind} | nvidia-smi: {smi} | torch {torch.__version__} "
           f"cuda {torch.version.cuda} | python {sys.version.split()[0]}")
 
-    phase("2/23 build (one nvcc per kernel, started together)")
+    phase("2/27 build (one nvcc per kernel, started together)")
     t0 = time.perf_counter()
     kernels = (fused_world.KERNEL, fused_world.CONTACT_KERNEL, fused_world.SOLVE_KERNEL,
                track_engine.KERNEL, pixels.KERNEL)
@@ -1648,7 +1863,7 @@ def main() -> int:
     cfg = EnvConfig(num_agents=1, use_random_direction=False)
     actions = cycled_actions(E, cfg.num_agents, dev)
 
-    phase(f"3/23 K1 vs plain at E={E} after 20 steps")
+    phase(f"3/27 K1 vs plain at E={E} after 20 steps")
     state = penv.reset_batch(cfg, SEEDS, E)
     for t in range(20):
         state, _, _ = penv.step(cfg, state, actions[t % 8])
@@ -1672,7 +1887,7 @@ def main() -> int:
           f"{KERNEL_TIMING_LAUNCHES} launches); "
           f"{ptx['K1'].get('joints_island', {}).get('registers')} registers")
 
-    phase(f"4/23 small input: {len(SMALL_SEEDS)} envs x {SMALL_STEPS} steps, card vs CPU")
+    phase(f"4/27 small input: {len(SMALL_SEEDS)} envs x {SMALL_STEPS} steps, card vs CPU")
     small = {d: penv.reset_batch(cfg, SMALL_SEEDS, len(SMALL_SEEDS), device=d)
              for d in ("cuda", "cpu")}
     returns = {d: 0.0 for d in small}
@@ -1687,7 +1902,7 @@ def main() -> int:
     if not (ret_dev <= 2e-5 and pos_dev <= 1e-3):
         raise AssertionError("small-input run on the card disagrees with the CPU path")
 
-    phase(f"5/23 N=1 main path: reset_batch E={E} ({len(SEEDS)} tracks) + {WARMUP} "
+    phase(f"5/27 N=1 main path: reset_batch E={E} ({len(SEEDS)} tracks) + {WARMUP} "
           f"warm-up + {T} steps")
     run1 = main_path(cfg, actions, "N=1", smi)
     times1 = kernel_times(cfg, run1, actions)
@@ -1699,7 +1914,7 @@ def main() -> int:
 
     cfg2 = EnvConfig(num_agents=2, use_random_direction=False)
     actions2 = cycled_actions(E, cfg2.num_agents, dev)
-    phase(f"6/23 K2 vs plain at N=2, E={E}, driven until {NEAR_SHARE:.0%} of envs are near")
+    phase(f"6/27 K2 vs plain at N=2, E={E}, driven until {NEAR_SHARE:.0%} of envs are near")
     state = penv.reset_batch(cfg2, SEEDS, E)
     for t in range(NEAR_MAX_STEPS + 1):
         pre = apply_controls(state.cars, actions2[t % 8])
@@ -1761,7 +1976,7 @@ def main() -> int:
         raise AssertionError(f"K2 vs plain (all-near): {id_near} envs' ids, {skid_near} skid "
                              f"flags differ")
 
-    phase("7/23 rear-end ram (N=4, E=1): K2 vs plain at the first step with contact")
+    phase("7/27 rear-end ram (N=4, E=1): K2 vs plain at the first step with contact")
     ram_cfg, ram, ram_act, ram_t = ram_state(dev)
     ram_pre = apply_controls(ram.cars, ram_act)
     k_ram = fused_world.island_step(ram_pre, ram.wheel_on_road, ram.contacts)
@@ -1777,7 +1992,7 @@ def main() -> int:
     if ram_id_miss:
         raise AssertionError("ram: K2's manifold ids differ from the plain version's")
 
-    phase(f"7/23 (cont.) N=4, E={N4_E}, driven until {NEAR_SHARE:.0%} of envs are near: K2 vs "
+    phase(f"7/27 (cont.) N=4, E={N4_E}, driven until {NEAR_SHARE:.0%} of envs are near: K2 vs "
           f"plain, the far pass, and K2 beside K3")
     cfg4 = EnvConfig(num_agents=4, use_random_direction=False)
     actions4 = cycled_actions(N4_E, 4, dev)
@@ -1810,7 +2025,7 @@ def main() -> int:
                                                  pile[2], "K2 vs plain (N=4, > 32 live rows)")
     phase(f"> 32 live rows: envs whose manifold ids differ {id_pile}")
 
-    phase("8/23 determinism: two K2 launches on phase 6's input")
+    phase("8/27 determinism: two K2 launches on phase 6's input")
     fin, ls_in = fused_world.pack_inputs(pre, state.wheel_on_road)
     a = fused_world.launch_contacts(fin, ls_in, cs_pre, cfg2.num_agents)
     b = fused_world.launch_contacts(fin, ls_in, cs_pre, cfg2.num_agents)
@@ -1831,19 +2046,19 @@ def main() -> int:
     # K3's path: world_step_batched on the card, its count set to 0 here and
     # read after phase 11; each call below launches K3 once.
     fused_world.world_step_batched.launches = 0
-    phase(f"9/23 K3 vs plain at N=2, E={E}, full {cfg2.velocity_iters}/"
+    phase(f"9/27 K3 vs plain at N=2, E={E}, full {cfg2.velocity_iters}/"
           f"{cfg2.position_iters}, on phase 6's input (plain tire model, Collide, make_bundle)")
     solve2 = solve_inputs(pre, state.wheel_on_road, cs_pre, 2)
     devs3 = compare_solve(solve2, 2, "K3 vs plain (N=2)")
 
-    phase("10/23 K3 vs plain on phase 7's ram (N=4, E=1) and at N=1, E=4096 (no bundle)")
+    phase("10/27 K3 vs plain on phase 7's ram (N=4, E=1) and at N=1, E=4096 (no bundle)")
     devs3.update({f"ram {f}": v for f, v in compare_solve(
         solve_inputs(ram_pre, ram.wheel_on_road, ram.contacts, 4), 4,
         "K3 vs plain (ram, N=4)").items()})
     devs3.update({f"N=1 {f}": v for f, v in compare_solve(
         solve_inputs(pre1, road1, None, 1), 1, "K3 vs plain (N=1)").items()})
 
-    phase("11/23 K2 vs plain Collide + K3 on phase 6's input")
+    phase("11/27 K2 vs plain Collide + K3 on phase 6's input")
     post2, _, _, _, skid2, man2 = solve2
     k3_cars, (k3_ni, k3_ti) = fused_world.world_step_batched(*solve2[:4], 2)
     live_list_check(solve2[3], E, "K3 on phase 6's input")
@@ -1860,7 +2075,7 @@ def main() -> int:
     if k3_launches != 4:
         raise AssertionError(f"K3 launched {k3_launches} times on its path, expected 4")
 
-    phase(f"12/23 K3 determinism and times at N=2, E={E} on phase 6's input, beside K2 on {smi}")
+    phase(f"12/27 K3 determinism and times at N=2, E={E} on phase 6's input, beside K2 on {smi}")
     same3 = []
     for solve_in in (solve2, solve_inputs(*near_in, 2)):
         fin3, ls3 = fused_world.pack_solve_inputs(*solve_in[:3])
@@ -1881,7 +2096,7 @@ def main() -> int:
         phase(f"K3 on the {name} input:")
         times3_more[name] = solve_times(*args)
 
-    phase(f"13/23 N=2 main path: reset_batch E={E} ({len(SEEDS)} tracks) + {WARMUP} "
+    phase(f"13/27 N=2 main path: reset_batch E={E} ({len(SEEDS)} tracks) + {WARMUP} "
           f"warm-up + {T} steps")
     run2 = main_path(cfg2, actions2, "N=2", smi)
     times2 = kernel_times(cfg2, run2, actions2)
@@ -1918,7 +2133,7 @@ def main() -> int:
                                                       for _, rv, rs in devs_pile.values())},
                 ptxas=ptx["K2"])
 
-    phase(f"14/23 K4/K5 vs plain at E={E}, N=1 and N=2, and E={N4_E}, N=4: a stepped state, "
+    phase(f"14/27 K4/K5 vs plain at E={E}, N=1 and N=2, and E={N4_E}, N=4: a stepped state, "
           f"a spawn tick, lifted wheels, and the cull's edges (on-road, seam, kerb, off-road, "
           f"self-approach, wheels-only); the cull's probes (wheels only, origins only)")
     checks = {**track_phase(cfg, actions), **track_phase(cfg2, actions2),
@@ -1934,24 +2149,24 @@ def main() -> int:
                              "cand_mean": r["cand_mean"], "cand_max": r["cand_max"]}
                          for k, r in checks.items()})
 
-    phase(f"15/23 state-PPO rollout: E={E}, N={ROLLOUT_N}, pool of {len(POOL_SEEDS)} host "
+    phase(f"15/27 state-PPO rollout: E={E}, N={ROLLOUT_N}, pool of {len(POOL_SEEDS)} host "
           f"tracks, chunks of {ROLLOUT_CHUNK} steps, past the time limit")
     rollout = rollout_phase(smi, dev)
 
-    phase("16/23 K6 vs plain: N=2 spawn tick, steady, mid zoom, camera jitter, mixed and "
+    phase("16/27 K6 vs plain: N=2 spawn tick, steady, mid zoom, camera jitter, mixed and "
           "backward at E=4096; N=1 CW; N=4 ego colour; the golden frames")
     pool = penv.make_track_pool(EnvConfig(num_agents=2), POOL_SEEDS, device=dev)
     t16 = time.perf_counter()
     px_checks = pixel_checks(dev, pool)
     phase(f"phase 16 took {time.perf_counter() - t16:.1f} s")
 
-    phase(f"17/23 pixel main path: reset_batch E={E}, N=2 + {WARMUP} warm-up + {T} steps, a "
+    phase(f"17/27 pixel main path: reset_batch E={E}, N=2 + {WARMUP} warm-up + {T} steps, a "
           f"frame after the reset and after every step")
     t17 = time.perf_counter()
     px_run = pixel_main_path(smi, dev)
     phase(f"phase 17 took {time.perf_counter() - t17:.1f} s")
 
-    phase(f"18/23 pixel-PPO env side: E={PPO_E}, N=2, {PPO_CHUNKS} chunks of {PPO_DECISIONS} "
+    phase(f"18/27 pixel-PPO env side: E={PPO_E}, N=2, {PPO_CHUNKS} chunks of {PPO_DECISIONS} "
           f"decisions x {PPO_REPEAT} steps, autoreset, past the time limit")
     px_rollout = pixel_rollout_phase(smi, dev, pool)
     learner = learner_phases(smi, dev)
@@ -1999,8 +2214,32 @@ def main() -> int:
                                                       "k2_ms_same_input", "live_envs")}
                              for name, t in times3_more.items()},
                 ptxas=ptx["K3"])
-    phase(f"23/23 report: every phase passed in {time.perf_counter() - start:.1f} s")
+    phase("23/27 the Gym facade on the card: MultiCarRacing-v0 and CarRacing-v0, "
+          f"{FACADE_STEPS} steps each")
+    t23 = time.perf_counter()
+    facade = {env_id: facade_phase(env_id, smi, dev)
+              for env_id in ("MultiCarRacing-v0", "CarRacing-v0")}
+    seconds = {"23": time.perf_counter() - t23}
+    phase("24/27 the 600x400 rgb_array painter on the card: the golden frame, and a frame "
+          "after hard braking")
+    t = time.perf_counter()
+    facade["rgb_array"] = rgb_array_phase(smi, dev)
+    seconds["24"] = time.perf_counter() - t
+    phase("25/27 Monitor: one short episode")
+    t = time.perf_counter()
+    facade["monitor"] = monitor_phase(dev)
+    seconds["25"] = time.perf_counter() - t
+    phase("26/27 python -m multi_car_racing_tpu_torch.train: 3 updates, an evaluation, "
+          "a checkpoint, then --resume")
+    t = time.perf_counter()
+    facade["train_cli"] = train_cli_phase()
+    seconds["26"] = time.perf_counter() - t
+    facade["seconds"] = seconds
+    phase(f"phases 23-26 took {time.perf_counter() - t23:.1f} s: " + ", ".join(
+        f"phase {k} {v:.1f} s" for k, v in seconds.items()))
+    phase(f"27/27 report: every phase passed in {time.perf_counter() - start:.1f} s")
     print(json.dumps({"learner": learner}), flush=True)
+    print(json.dumps({"facade": facade}), flush=True)
     print(json.dumps({"kernels": [k1, k2, k3, k45, k6], "rollout": rollout,
                       "pixel_main_path": {k: v for k, v in px_run.items()},
                       "pixel_rollout": px_rollout}), flush=True)

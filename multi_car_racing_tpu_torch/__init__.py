@@ -33,13 +33,47 @@ ship as policy files and evaluate by name:
     ts = ppo.init_train_state(env_cfg, ppo.PPOConfig(num_envs=1024), seed=0)
     ts, metrics = ppo.make_train_step(env_cfg, ts.ppo_cfg)(ts)
 
+The Gym facade is the reference's own entry point: one env, numpy in and
+out, the 96x96 observation painted by the same kernel, ``render()`` with
+the 600x400 ``rgb_array`` viewport and its skid trails
+(``render.raster.render_observation``), and ``monitor.Monitor`` to record
+episodes; ``train`` is the PPO command line, ``metrics`` its logger:
+
+    import multi_car_racing_tpu_torch as mcr
+    env = mcr.make("MultiCarRacing-v0")          # or "CarRacing-v0"; device="cpu"
+    env.seed(0)
+    obs = env.reset()                            # (2, 96, 96, 3) uint8
+    obs, reward, done, info = env.step(env.action_space.sample())
+    frames = env.render("rgb_array")             # (2, 400, 600, 3)
+    env = mcr.monitor.Monitor(mcr.make("CarRacing-v0"), "/tmp/run1")
+    # python -m multi_car_racing_tpu_torch.train --carracing-v0 --log run.jsonl
+
 Entry points run on CUDA unless the caller passes ``device="cpu"``, where
 every kernel is replaced by its plain PyTorch version. Kernels build with
 nvcc at first use; importing the package builds nothing.
+
+Not ported yet: the batched facade ``VectorMultiCarRacing`` and the
+on-device track generator it draws from, multi-GPU training, the demo and
+terminal tools.
 """
 
-from . import checkpoint, config, convert, env, learner, obs, render
+# ``train`` (the command line, ``python -m multi_car_racing_tpu_torch.train``)
+# loads on first access (``__getattr__`` below), so that running it as a
+# module finds it unloaded.
+from . import (checkpoint, config, convert, env, gym_api, learner, metrics, monitor, obs,
+               render, window)
 from .config import EnvConfig
+from .gym_api import MultiCarRacing, TimeLimit, make
 
 __version__ = "0.1.0"
-__all__ = ["checkpoint", "config", "convert", "env", "learner", "obs", "render", "EnvConfig"]
+__all__ = ["checkpoint", "config", "convert", "env", "gym_api", "learner", "metrics", "monitor",
+           "obs", "render", "train", "window", "EnvConfig", "MultiCarRacing", "TimeLimit",
+           "make"]
+
+
+def __getattr__(name: str):
+    if name == "train":
+        import importlib
+
+        return importlib.import_module(".train", __name__)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -130,10 +130,20 @@ class EnvConfig:
     The fields of the JAX package's ``EnvConfig`` that the port reads: the
     reference constructor kwargs that shape the physics, the episode and the
     pixel observation (mcr:131-133: the backwards flag, the camera's height
-    ratio and ego colours, read by ``render.pixels``), track padding and the
-    solver iteration counts. ``track_skid`` and ``exact_hull_touch`` belong
-    to the rgb_array painter, not yet ported; the env refuses them when set
-    rather than ignoring them.
+    ratio and ego colours, read by ``render.pixels``; ``verbose``, read by
+    the Gym facade's reset), track padding, the solver iteration counts, and
+    the two render-only switches: ``track_skid`` (the skid trails that
+    ``render.raster.render_observation`` draws for ``rgb_array``) and
+    ``exact_hull_touch`` (the full hull-fixture SAT for the tiles' touched
+    flag).
+
+    The JAX fields that belong to later parts of the port are not fields
+    here, so setting one raises ``TypeError``: ``obs_type`` and
+    ``auto_reset`` (the batched facade ``VectorMultiCarRacing``, which waits
+    for the on-device track generator), ``max_track_points`` and
+    ``max_track_retries`` (the bounds of that generator's walk and
+    resampling), and ``dtype`` (float32 only, until a mixed-precision
+    physics is ported).
     """
 
     num_agents: int = 2
@@ -142,6 +152,7 @@ class EnvConfig:
     backwards_flag: bool = True       # blue triangle while driving backward
     h_ratio: float = 0.25             # car anchor height / window height
     use_ego_color: bool = False       # ego car red, others blue (per view)
+    verbose: int = 0                  # 1: the facade prints each reset's track line
 
     # --- engine knobs (new, no reference counterpart) ---
     max_tiles: int = 384              # pad track to this many tiles (measured max 355)

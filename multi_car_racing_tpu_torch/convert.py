@@ -23,7 +23,8 @@ from collections.abc import Mapping
 import numpy as np
 import torch
 
-from .env import EnvState, SkidState
+from .env import EnvState
+from .render.particles import SkidState
 from .physics.collide import ContactBundle, ContactState, Manifolds
 from .physics.state import CarState
 from .track.common import Track

@@ -22,9 +22,16 @@ Episode management for batched rollouts: ``make_track_pool`` stacks host
 tracks, ``reset_done_envs`` puts fresh episodes drawn from the pool into the
 envs that are done or past ``cfg.max_episode_steps``.
 
-Skid trails and the exact hull-touch flag belong to the rgb_array painter,
-not yet ported: ``step`` raises ``NotImplementedError`` for them rather than
-computing something else.
+Two render-only switches (off by default, on in the Gym facade for the
+first): ``cfg.track_skid`` advances the skid-trail ring
+(``render/particles.update``) on every step and spawn tick from the
+pre-solve wheel positions, the island's skid flags and the lagged on-road
+mask, as the JAX package does; ``cfg.exact_hull_touch`` ORs the hull
+fixtures' SAT against the tiles (``physics/overlap.hull_tile_overlap``, on
+the pre-solve pose) into the touched flag that K4/K5 computes from the hull
+centre. The centre lies inside hull fixture 3, so the centre test is a
+subset of the fixture test and the OR equals the JAX flag
+(``tests/test_torch_raster.py`` holds both).
 """
 
 from __future__ import annotations
@@ -40,25 +47,14 @@ from . import config as C
 from . import seeding
 from .physics.collide import ContactState, init_contact_state
 from .physics.fused_world import island_step
+from .physics.overlap import hull_tile_overlap
 from .physics.track_engine import track_pass
 from .physics.state import CarState, apply_controls, create_cars
+from .render import particles
+from .render.particles import SkidState
 from .track import host as track_host
 from .track.common import Track, pack_track_arrays, track_from_arrays
 from .util import resolve_device, tree_map
-
-MAX_SEGMENTS = 256       # skid segments per car (render/particles.py)
-
-
-@dataclasses.dataclass(frozen=True)
-class SkidState:
-    """Render-only tire-mark trails (kept at their initial values)."""
-    seg: torch.Tensor      # (E, N, K, 4)
-    grass: torch.Tensor    # (E, N, K) bool
-    valid: torch.Tensor    # (E, N, K) bool
-    head: torch.Tensor     # (E, N) int32
-    prev: torch.Tensor     # (E, N, 4, 2)
-    active: torch.Tensor   # (E, N, 4) bool
-
 
 @dataclasses.dataclass(frozen=True)
 class EnvState:
@@ -81,15 +77,6 @@ class EnvState:
 
     def replace(self, **updates) -> "EnvState":
         return dataclasses.replace(self, **updates)
-
-
-def _check_supported(cfg: C.EnvConfig):
-    if cfg.track_skid:
-        raise NotImplementedError("skid trails belong to the rendering slice's rgb_array "
-                                  "painter, not yet ported")
-    if cfg.exact_hull_touch:
-        raise NotImplementedError("exact_hull_touch belongs to the rendering slice's "
-                                  "rgb_array painter, not yet ported")
 
 
 def _episode_start(cars: CarState, track: Track, direction_cw: torch.Tensor,
@@ -116,28 +103,39 @@ def _episode_start(cars: CarState, track: Track, direction_cw: torch.Tensor,
         steps=z(dtype=torch.int32),
         done=z(dtype=torch.bool),
         contacts=init_contact_state(E, n, device=dev, dtype=f32),
-        skid=SkidState(
-            seg=z(n, MAX_SEGMENTS, 4), grass=z(n, MAX_SEGMENTS, dtype=torch.bool),
-            valid=z(n, MAX_SEGMENTS, dtype=torch.bool), head=z(n, dtype=torch.int32),
-            prev=z(n, 4, 2), active=z(n, 4, dtype=torch.bool),
-        ),
+        skid=particles.init(E, n, device=dev, dtype=f32),
     )
+
+
+def _render_flags(cfg: C.EnvConfig, state: EnvState, pre_cars: CarState, lagged: torch.Tensor,
+                  skid_flag: torch.Tensor, tile_touched: torch.Tensor):
+    """The render-only switches: (skid trails, touched flag) after a step or
+    spawn tick whose pre-solve cars are ``pre_cars``."""
+    skid = state.skid
+    if cfg.track_skid:
+        # Trails record the tire model's positions and flags (cd:232-249):
+        # pre-solve wheel positions, post-tire skid flags.
+        skid = particles.update(skid, pre_cars.wheel_c, skid_flag, lagged)
+    if cfg.exact_hull_touch:
+        tile_touched = tile_touched | hull_tile_overlap(pre_cars, state.track)
+    return skid, tile_touched
 
 
 def _physics_and_contacts(state: EnvState, cfg: C.EnvConfig):
     """The reset tick's stages: contact pass + rewards on the pre-step pose
     (the track pass, its post-pose outputs unused), then the fused physics
     stage with the lagged contact mask."""
-    _check_supported(cfg)
     lagged = state.wheel_on_road
     wheel_on_road, visited, bonus, cnt, tile_touched, _, _ = track_pass(
         state.track, state.cars, state.cars.hull_origin, state.visited,
         state.tile_touched, cfg.num_agents)
-    cars, _, contacts = island_step(state.cars, lagged, state.contacts,
-                                    cfg.velocity_iters, cfg.position_iters)
+    cars, skid_flag, contacts = island_step(state.cars, lagged, state.contacts,
+                                            cfg.velocity_iters, cfg.position_iters)
+    skid, tile_touched = _render_flags(cfg, state, state.cars, lagged, skid_flag, tile_touched)
     return state.replace(
         cars=cars,
         contacts=contacts,
+        skid=skid,
         reward=state.reward + bonus,
         visited=visited,
         tile_visited_count=state.tile_visited_count + cnt,
@@ -204,7 +202,6 @@ def spawn_state(cfg: C.EnvConfig, track: Track, car_order: torch.Tensor,
 
     ``car_order`` (E, N) int; ``direction_cw`` (E,) bool; both on the
     track's device."""
-    _check_supported(cfg)
     f32 = track.xy.dtype
     order = car_order.to(torch.int64)
     line = torch.div(order, 2, rounding_mode="floor")
@@ -236,7 +233,6 @@ def step(cfg: C.EnvConfig, state: EnvState, action: torch.Tensor):
     """One step of every env. ``action`` is (E, N, 3): (steer, gas, brake).
 
     Returns (state', step_reward (E, N), done (E,))."""
-    _check_supported(cfg)
     E, n = state.reward.shape
     if n != cfg.num_agents or tuple(action.shape) != (E, n, 3):
         raise ValueError(f"step: a state of {n} cars per env under num_agents="
@@ -245,14 +241,17 @@ def step(cfg: C.EnvConfig, state: EnvState, action: torch.Tensor):
     # Reward accrued but not yet reported: nonzero only right after reset.
     carry = state.reward - state.prev_reward
     pre_cars = apply_controls(state.cars, action.to(state.reward.dtype))
-    new_cars, _, contacts = island_step(pre_cars, state.wheel_on_road, state.contacts,
-                                        cfg.velocity_iters, cfg.position_iters)
+    new_cars, skid_flag, contacts = island_step(pre_cars, state.wheel_on_road, state.contacts,
+                                                cfg.velocity_iters, cfg.position_iters)
     (wheel_on_road, visited, bonus, cnt, tile_touched, nearest_beta,
      on_grass) = track_pass(state.track, pre_cars, new_cars.hull_origin,
                             state.visited, state.tile_touched, cfg.num_agents)
+    skid, tile_touched = _render_flags(cfg, state, pre_cars, state.wheel_on_road, skid_flag,
+                                       tile_touched)
     state = state.replace(
         cars=new_cars,
         contacts=contacts,
+        skid=skid,
         wheel_on_road=wheel_on_road,
         visited=visited,
         tile_touched=tile_touched,

@@ -29,6 +29,7 @@ from multi_car_racing_tpu.physics import (
 from multi_car_racing_tpu_torch import convert
 from multi_car_racing_tpu_torch import config as PC
 from multi_car_racing_tpu_torch.physics import collide as pcollide, fused_world, shapes
+from torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 TOL = 5e-4
 CSRC = Path(fused_world.__file__).parent.parent / "csrc"

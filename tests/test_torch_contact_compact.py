@@ -23,6 +23,7 @@ import torch
 
 from multi_car_racing_tpu_torch.physics import collide, fused_world
 from multi_car_racing_tpu_torch.physics.state import create_cars
+from torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 CSRC = Path(fused_world.__file__).parent.parent / "csrc"
 TOL = 5e-4

@@ -30,6 +30,7 @@ from multi_car_racing_tpu_torch import convert
 from multi_car_racing_tpu_torch.physics import fused_world
 
 from test_torch_collide import compare_manifolds
+from torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 N = 4
 VI, PI = 30, 12

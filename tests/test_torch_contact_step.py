@@ -39,6 +39,7 @@ from multi_car_racing_tpu_torch.physics.collide import ContactState
 
 from test_torch_collide import _place_pair
 from test_torch_contact_ram import VI, PI, assert_step_matches, xla_pipeline
+from torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 FIXTURE = os.path.join(os.path.dirname(__file__), "fixtures", "contact_divergence_state.pkl")
 

@@ -22,6 +22,7 @@ from multi_car_racing_tpu.track import host as jhost
 
 from multi_car_racing_tpu_torch import EnvConfig, convert, env as penv, seeding as pseed
 from multi_car_racing_tpu_torch.util import tree_leaves
+from torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 SEEDS = (0, 1, 2, 3)
 STEPS = 100
@@ -173,15 +174,41 @@ def test_contact_slice_is_refused():
 
 @pytest.mark.parametrize("knob", ["track_skid", "exact_hull_touch"])
 def test_render_knobs_are_refused(knob):
-    cfg = EnvConfig(num_agents=1, use_random_direction=False, **{knob: True})
-    with pytest.raises(NotImplementedError, match="rendering slice"):
-        penv.reset_batch(cfg, (0,), 1, device="cpu")
+    """The render knobs were refused until the rgb_array painter was ported;
+    now each is read, and never silently: with the knob off the state is
+    what it was; with it on, ``track_skid`` grows the skid ring (the rear
+    wheels spin at launch) and ``exact_hull_touch`` ORs the hull fixtures'
+    SAT on the pre-solve pose into the touched flag
+    (``tests/test_torch_raster.py`` holds both against JAX)."""
+    from multi_car_racing_tpu_torch.physics.overlap import hull_tile_overlap
+
+    base = EnvConfig(num_agents=1, use_random_direction=False, velocity_iters=8,
+                     position_iters=3)
+    cfg = dataclasses.replace(base, **{knob: True})
+    st_on = penv.reset_batch(cfg, (0,), 1, device="cpu")
+    st_off = penv.reset_batch(base, (0,), 1, device="cpu")
+    gas = torch.tensor([[[0.0, 1.0, 0.0]]])
+    ahead = False             # the bumper reached a tile before the wheels did
+    for _ in range(20):
+        pre, touched_before = st_on.cars, st_on.tile_touched
+        st_on, _, _ = penv.step(cfg, st_on, gas)
+        st_off, _, _ = penv.step(base, st_off, gas)
+        if knob == "exact_hull_touch":
+            want = st_off.tile_touched | hull_tile_overlap(pre, st_on.track) | touched_before
+            assert torch.equal(st_on.tile_touched, want)
+            ahead |= bool((st_on.tile_touched & ~st_off.tile_touched).any())
+    assert int(st_off.skid.valid.sum()) == 0
+    if knob == "track_skid":
+        assert int(st_on.skid.valid.sum()) > 0
+    else:
+        assert ahead and int(st_on.skid.valid.sum()) == 0
 
 
-@pytest.mark.parametrize("field", ["auto_reset", "dtype", "obs_type", "verbose"])
+@pytest.mark.parametrize("field", ["auto_reset", "dtype", "obs_type", "max_track_points",
+                                   "max_track_retries"])
 def test_config_has_no_field_the_port_does_not_read(field):
-    """A JAX-package knob this slice does not implement is not a field of the
-    port's config, so setting it fails instead of being ignored."""
+    """A JAX-package knob the port does not implement yet is not a field of
+    the port's config, so setting it fails instead of being ignored."""
     assert field in {f.name for f in dataclasses.fields(JC.EnvConfig)}
     with pytest.raises(TypeError):
         EnvConfig(**{field: getattr(JC.EnvConfig(), field)})

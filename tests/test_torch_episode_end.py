@@ -29,6 +29,7 @@ from multi_car_racing_tpu import config as JC, env as jenv
 from multi_car_racing_tpu_torch import EnvConfig, convert, env as penv
 
 from test_torch_multicar import REWARD_TOL, cmp_cars, cmp_masks, jax_reset
+from torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 SEEDS = (0, 1, 2, 3)
 STEPS = 3

@@ -36,6 +36,7 @@ from multi_car_racing_tpu_torch.util import tree_leaves, tree_map
 
 from test_torch_multicar import cmp_cars, cmp_masks
 from test_torch_obs import jax_state
+from torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 SEEDS = (0, 1, 2, 3)
 POOL_SEEDS = (10, 11, 12)

@@ -35,10 +35,11 @@ for name in ("jax", "jaxlib", "flax"):
 sys.path.insert(0, {str(ROOT)!r})
 import multi_car_racing_tpu_torch
 from multi_car_racing_tpu_torch import config, convert, env, obs, seeding, util, _cuda
+from multi_car_racing_tpu_torch import gym_api, metrics, monitor, train, window
 from multi_car_racing_tpu_torch.physics import (
     collide, fused_world, joints, overlap, shapes, state, tire, track_engine, world)
 from multi_car_racing_tpu_torch.track import common, host
-from multi_car_racing_tpu_torch.render import geometry, pixels, raster
+from multi_car_racing_tpu_torch.render import geometry, particles, pixels, raster
 spec = importlib.util.spec_from_file_location("chip_smoke", {str(SMOKE)!r})
 mod = importlib.util.module_from_spec(spec)
 spec.loader.exec_module(mod)          # defines main(), does not run it
@@ -73,18 +74,27 @@ def test_sources_import_nothing_of_jax(path):
 
 
 def test_entry_points_default_to_cuda():
-    from multi_car_racing_tpu_torch import EnvConfig, env
+    from multi_car_racing_tpu_torch import EnvConfig, env, gym_api, train
     from multi_car_racing_tpu_torch.util import resolve_device
 
     cfg = EnvConfig(num_agents=1, use_random_direction=False)
     if torch.cuda.is_available():
         assert resolve_device().type == "cuda"
+        assert gym_api.MultiCarRacing(num_agents=1).device.type == "cuda"
         return
     with pytest.raises(RuntimeError, match="no CUDA device"):
         env.reset_batch(cfg, (0,), 1)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         env.host_reset(cfg, seed=0)
+    # The facade and the trainer: no quiet fall back to the CPU either.
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        gym_api.make("CarRacing-v0")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        gym_api.MultiCarRacing(num_agents=2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(["--updates", "1", "--num-envs", "2"])
     assert resolve_device("cpu").type == "cpu"
+    assert gym_api.make("CarRacing-v0", device="cpu").env.device.type == "cpu"
 
 
 def test_chip_smoke_fails_without_a_card():

@@ -705,3 +705,60 @@ def test_pixels_solved_evaluates_on_card():
     assert bool(((length > 100) & (length <= env_cfg.max_episode_steps)).all()), length
     assert float(frac.min()) >= 0.5, frac
     assert evaluate.summarize(out)["eval_return"] > 500
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("env_id,island", [("MultiCarRacing-v0", "contact_launches"),
+                                           ("CarRacing-v0", "launches")])
+def test_facade_steps_through_the_kernels_on_card(env_id, island):
+    """The Gym facade on the card: each step launches its island kernel
+    (K2 at two cars, K1 at one), the track pass and the painter once, and
+    its observation equals the plain painter's on the same state."""
+    _need_card()
+    from multi_car_racing_tpu_torch import gym_api
+
+    env = gym_api.make(env_id, verbose=0)
+    env.seed(1)
+    env.reset()
+    counts = (getattr(fused_world.island_step, island), track_engine.track_pass.launches,
+              pixels.paint_views.launches)
+    for t in range(12):
+        obs, r, done, _ = env.step(np.full((env.num_agents, 3), [0.1 * (t % 3 - 1), 0.8, 0.0]))
+    after = (getattr(fused_world.island_step, island), track_engine.track_pass.launches,
+             pixels.paint_views.launches)
+    assert tuple(b - a for a, b in zip(counts, after)) == (12, 12, 12)
+    plain = pixels.paint_views_plain(*pixels.paint_inputs(env.env.cfg, env.state))[0]
+    assert np.array_equal(obs, plain.cpu().numpy()) and np.isfinite(r).all()
+
+
+@pytest.mark.gpu
+def test_rgb_array_painter_on_card_matches_golden_and_cpu():
+    """The 600x400 painter on the card: the rgb_array_skid golden frame
+    byte for byte, and the same frame as on the CPU for a moved-trails
+    state."""
+    _need_card()
+    import json
+    import os
+
+    from multi_car_racing_tpu_torch import convert
+    from multi_car_racing_tpu_torch.render import raster
+
+    d = np.load(os.path.join(os.path.dirname(__file__), "fixtures", "golden",
+                             "rgb_array_skid.npz"))
+    meta = json.loads(str(d["meta"]))
+    leaves = [d[f"leaf_{i}"][None] for i in range(meta["n_leaves"])]
+    cfg = EnvConfig(**meta["cfg"])
+    card = convert.env_state_from_leaves(leaves, device="cuda")
+    img = raster.render_observation(cfg, card, 600, 400, draw_particles=True)
+    assert np.array_equal(img[0].cpu().numpy(), d["frame"])
+    shift = torch.tensor([4.0, 3.0, 4.0, 3.0], device="cuda")
+    seg = card.skid.seg.clone()
+    for k in range(seg.shape[1]):
+        ok = card.skid.valid[0, k]
+        centre = card.cars.hull_origin[0, k].repeat(2) + shift
+        seg[0, k] = seg[0, k] - seg[0, k, ok].mean(0) + centre
+    moved = card.replace(skid=dataclasses.replace(card.skid, seg=seg))
+    a = raster.render_observation(cfg, moved, 600, 400, draw_particles=True)[0].cpu().numpy()
+    b = raster.render_observation(cfg, tree_map(lambda x: x.cpu(), moved), 600, 400,
+                                  draw_particles=True)[0].numpy()
+    assert np.array_equal(a, b) and not np.array_equal(a, d["frame"])

@@ -25,6 +25,7 @@ from multi_car_racing_tpu import config as JC, env as jenv, seeding as jseed
 from multi_car_racing_tpu.track import host as jhost
 
 from multi_car_racing_tpu_torch import EnvConfig, env as penv
+from torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 N = 2
 SEEDS = (0, 1, 2, 3)

@@ -25,6 +25,7 @@ from multi_car_racing_tpu.track import common as jcommon
 
 from multi_car_racing_tpu_torch import EnvConfig, convert, env as penv, obs as pobs
 from multi_car_racing_tpu_torch.physics.track_engine import nearest_tile
+from torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 SEEDS = (0, 1, 2, 3)
 TOL = 1e-5

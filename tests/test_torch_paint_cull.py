@@ -29,6 +29,7 @@ import torch
 
 from multi_car_racing_tpu_torch import EnvConfig, convert, env as penv
 from multi_car_racing_tpu_torch.render import pixels as PP
+from torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 GOLDEN_DIR = os.path.join(os.path.dirname(__file__), "fixtures", "golden")
 GOLDENS = sorted(os.path.basename(p)[:-4] for p in glob.glob(os.path.join(GOLDEN_DIR, "*.npz"))

@@ -30,6 +30,7 @@ from multi_car_racing_tpu_torch.physics import (
     collide as pcollide, fused_world, joints as pjoints, state as pstate, tire as ptire,
     world as pworld,
 )
+from torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 SEEDS = (0, 3, 5, 8)
 TOL = 5e-4

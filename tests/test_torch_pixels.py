@@ -23,6 +23,7 @@ from multi_car_racing_tpu_torch import EnvConfig, convert, obs
 from multi_car_racing_tpu_torch.render import pixels as PP, raster as PR
 from multi_car_racing_tpu_torch.util import tree_leaves
 from test_torch_render import GOLDENS, golden
+from torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 # The mixed batch: (golden, t). Warm while t < 0.999 s (pallas_raster.py:116).
 MIXED = (("steady_2agent", None), ("warmup_2agent", None), ("backwards_flag", None),

@@ -15,6 +15,7 @@ from functools import partial
 
 import jax
 import numpy as np
+import pytest
 
 from multi_car_racing_tpu import config as JC
 from multi_car_racing_tpu.render import pallas_raster as JPR, raster as JR
@@ -22,13 +23,22 @@ from multi_car_racing_tpu.render import pallas_raster as JPR, raster as JR
 from multi_car_racing_tpu_torch import EnvConfig, convert, obs
 from test_torch_pixels import mixed_batch
 from test_torch_render import jax_from_leaves
+from torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 
-def test_mixed_batch_matches_jax_pallas_kernel():
+@pytest.fixture(scope="module")
+def batch():
+    """The mixed batch and the port's frames of it, painted once for both
+    tests."""
     kw, leaves, warm = mixed_batch()
     assert warm == [False, True, False, True]
     img = obs.pixel_observation_batched(EnvConfig(**kw), convert.env_state_from_leaves(
         leaves, device="cpu")).numpy()
+    return kw, leaves, img
+
+
+def test_mixed_batch_matches_jax_pallas_kernel(batch):
+    kw, leaves, img = batch
     ref = np.asarray(JPR.render_pixels(JC.EnvConfig(**kw), jax_from_leaves(leaves),
                                        interpret=True))
     assert img.shape == ref.shape == (4, 2, 96, 96, 3)
@@ -36,11 +46,8 @@ def test_mixed_batch_matches_jax_pallas_kernel():
     assert not bad.any(), (int(bad.sum()), np.argwhere(bad)[:8].tolist())
 
 
-def test_mixed_batch_matches_jax_painter():
-    kw, leaves, warm = mixed_batch()
-    assert warm == [False, True, False, True]
-    img = obs.pixel_observation_batched(EnvConfig(**kw), convert.env_state_from_leaves(
-        leaves, device="cpu")).numpy()
+def test_mixed_batch_matches_jax_painter(batch):
+    kw, leaves, img = batch
     ref = np.asarray(jax.jit(jax.vmap(partial(JR.render_observation, JC.EnvConfig(**kw))))(
         jax_from_leaves(leaves)))
     assert img.shape == ref.shape == (4, 2, 96, 96, 3)

@@ -52,6 +52,7 @@ from multi_car_racing_tpu_torch import EnvConfig, convert
 from multi_car_racing_tpu_torch.render import geometry as PG, pixels as PP
 from multi_car_racing_tpu_torch.util import tree_leaves
 from test_torch_obs import jax_state
+from torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 GOLDEN_DIR = os.path.join(os.path.dirname(__file__), "fixtures", "golden")
 GOLDENS = sorted(os.path.basename(p)[:-4] for p in glob.glob(os.path.join(GOLDEN_DIR, "*.npz"))
@@ -61,10 +62,12 @@ COEF_TOL = 4e-6
 
 
 def golden(name):
-    """(config kwargs, the 52 leaves with a leading env axis, frame)."""
+    """(config kwargs, the 52 leaves with a leading env axis, frame). The
+    frame is 96x96 but for ``rgb_array_skid``'s 600x400 viewport."""
     d = np.load(os.path.join(GOLDEN_DIR, name + ".npz"), allow_pickle=False)
     meta = json.loads(str(d["meta"]))
-    assert meta["vp"] is None and meta["n_leaves"] == 52
+    assert meta["vp"] == ([600, 400] if name == "rgb_array_skid" else None)
+    assert meta["n_leaves"] == 52
     return meta["cfg"], [d[f"leaf_{i}"][None] for i in range(52)], d["frame"]
 
 

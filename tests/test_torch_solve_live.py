@@ -29,6 +29,7 @@ import torch
 from multi_car_racing_tpu_torch import _cuda
 from multi_car_racing_tpu_torch.physics import collide, fused_world, tire, world
 from test_torch_contact_compact import CAR_FIELDS, synthetic_cars
+from torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 CSRC = Path(fused_world.__file__).parent.parent / "csrc"
 

@@ -14,6 +14,7 @@ from multi_car_racing_tpu.track import common as j_common, host as j_host
 
 from multi_car_racing_tpu_torch import config as p_config, seeding as p_seeding
 from multi_car_racing_tpu_torch.track import common as p_common, host as p_host
+from torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 SEEDS = (0, 1, 2, 7, 42, 123, 999, 31337)
 MT = p_config.EnvConfig().max_tiles

@@ -24,6 +24,7 @@ from multi_car_racing_tpu_torch.physics import track_cases, track_engine
 from multi_car_racing_tpu_torch.track import host
 from multi_car_racing_tpu_torch.track.common import pack_track_arrays, track_from_arrays
 from multi_car_racing_tpu_torch.util import tree_map
+from torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 SEEDS = tuple(range(8))
 MT = 384

@@ -31,6 +31,7 @@ from multi_car_racing_tpu_torch import config as C, convert, seeding
 from multi_car_racing_tpu_torch.physics import shapes, track_engine
 from multi_car_racing_tpu_torch.track import host
 from multi_car_racing_tpu_torch.track.common import pack_track_arrays, track_from_arrays
+from torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 SEEDS = (0, 1, 2, 3)
 MT = 384

@@ -40,6 +40,7 @@ from multi_car_racing_tpu_torch.physics import fused_world, world
 
 from test_torch_contact_ram import CAR_FIELDS, PI, VI, assert_both_bars
 from test_torch_contact_step import _placed_contacts
+from torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 REDUCED = dict(contact_velocity_iters=10, contact_position_iters=4)
 
