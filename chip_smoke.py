@@ -322,6 +322,7 @@ FACADE_STEPS = 100              # facade steps per env id (cycled actions)
 FACADE_CHECK_EVERY = 25         # every 25th observation held against the plain painter
 FACADE_LAUNCH_STEPS = 30        # gas steps before the braking frame
 FACADE_BRAKE_STEPS = 5
+TRACE_STEPS = 10                # facade steps (and frames) in each torch.profiler trace
 MONITOR_STEPS = 10
 SMOKE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "multi_car_racing_tpu_torch",
                          "_build", "chip_smoke_entry_points")
@@ -471,6 +472,56 @@ def profiled_kernel_ms(cfg, state, actions, kernel: str) -> float | None:
             us = getattr(ev, "device_time_total", None) or getattr(ev, "cuda_time_total", 0)
             return us / 1e3 / ev.count if us else None
     return None
+
+
+def device_trace(fn, reps: int) -> dict:
+    """Runs ``fn()`` ``reps`` times under torch.profiler (CUDA activity) and
+    reads the trace, per call: the host's wall ms (to a synchronise after
+    the last call), the card's busy ms (the union of its kernel, memcpy and
+    memset intervals), the idle share 1 - busy / wall of the traced run, and
+    the kernels, copies and memsets on the card. Busy ms and the counts are
+    None where the trace holds no device event."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    # The raw Kineto events: prof.events() builds a Python object per event
+    # (~75 us each), seconds for a 600x400 frame's ~20k launches.
+    spans, kinds = [], {"kernels": 0, "memcpy": 0, "memset": 0}
+    for ev in prof.profiler.kineto_results.events():
+        if ev.device_type() != DeviceType.CUDA:
+            continue
+        spans.append((ev.start_ns(), ev.start_ns() + ev.duration_ns()))
+        name = ev.name()
+        kind = ("memcpy" if name.startswith("Memcpy") else
+                "memset" if name.startswith("Memset") else "kernels")
+        kinds[kind] += 1
+    busy_ns, end = 0, None
+    for a, b in sorted(spans):
+        if end is None or a > end:
+            busy_ns, end = busy_ns + (b - a), b
+        elif b > end:
+            busy_ns, end = busy_ns + (b - end), b
+    out = {"reps": reps, "wall_ms": wall_ms / reps}
+    if not spans:
+        return {**out, "busy_ms": None, "idle_share": None,
+                **{k: None for k in kinds}}
+    return {**out, "busy_ms": busy_ns / 1e6 / reps, "idle_share": 1.0 - busy_ns / 1e6 / wall_ms,
+            **{k: v / reps for k, v in kinds.items()}}
+
+
+def trace_line(label: str, tr: dict) -> str:
+    if tr["busy_ms"] is None:
+        return f"{label}: {tr['wall_ms']:.4f} ms each, no device event in the trace"
+    return (f"{label}: {tr['wall_ms']:.4f} ms each under the profiler, card busy "
+            f"{tr['busy_ms']:.4f} ms (idle share {tr['idle_share']:.4f}); {tr['kernels']:g} "
+            f"kernels, {tr['memcpy']:g} copies, {tr['memset']:g} memsets each")
 
 
 def island_kernel(cfg, fin, ls_in, contacts):
@@ -1678,6 +1729,17 @@ def facade_phase(env_id: str, smi: str, dev: torch.device) -> dict:
     if bad:
         raise AssertionError(f"facade {env_id}: {bad} observation pixels differ from the plain "
                              f"painter's")
+    # Where a step's time goes: traces of the facade step, of its parts
+    # (the core env.step; the observation, view_inputs + K6) on the same state.
+    cfg, st = env.env.cfg, env.state
+    act = torch.as_tensor(actions[0], device=dev)[None]
+    out["trace"] = {
+        "facade_step": device_trace(lambda: env.step(actions[1]), TRACE_STEPS),
+        "env_step": device_trace(lambda: penv.step(cfg, st, act), TRACE_STEPS),
+        "observation": device_trace(lambda: pobs.pixel_observation_batched(cfg, st),
+                                    TRACE_STEPS)}
+    for k, tr in out["trace"].items():
+        phase(trace_line(f"facade {env_id} trace, {k} x{TRACE_STEPS}", tr))
     return out
 
 
@@ -1705,6 +1767,15 @@ def rgb_array_phase(smi: str, dev: torch.device) -> dict:
     env.seed(0)
     env.reset()
     warm_ms = cuda_ms(lambda: env.render("rgb_array"), 2)
+    # One traced frame of each kind: the golden state's (steady zoom) and the
+    # fresh reset's (the first-second zoom-out paints the whole track).
+    trace = {
+        "steady_frame": device_trace(lambda: raster.render_observation(
+            cfg, st, 600, 400, draw_particles=True), 1),
+        "warm_frame": device_trace(lambda: raster.render_observation(
+            env.env.cfg, env.state, 600, 400, draw_particles=True), 1)}
+    for k, tr in trace.items():
+        phase(trace_line(f"rgb_array trace, {k}", tr))
     gas = torch.tensor([[[0.0, 1.0, 0.0]]], device=dev)
     for _ in range(FACADE_LAUNCH_STEPS):
         env.env._state, _, _ = penv.step(env.env.cfg, env.state, gas)
@@ -1722,7 +1793,7 @@ def rgb_array_phase(smi: str, dev: torch.device) -> dict:
     trail_px = int((braked != no_trails).any(-1).sum())
     out = {"golden_differing_pixels": golden_bad, "steady_ms": steady_ms, "warm_ms": warm_ms,
            "segments_after_launch": launched, "segments_per_brake_step": counts,
-           "trail_pixels": trail_px, "card_vs_cpu_differing_pixels": cpu_bad}
+           "trail_pixels": trail_px, "card_vs_cpu_differing_pixels": cpu_bad, "trace": trace}
     phase(f"braking: {launched} segments after a {FACADE_LAUNCH_STEPS}-step launch, then "
           f"{counts} over {FACADE_BRAKE_STEPS} brake steps; {trail_px} trail pixels in the "
           f"frame; card vs CPU frame differing pixels {cpu_bad}; warm frame {warm_ms:.3f} ms")

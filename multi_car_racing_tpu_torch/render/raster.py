@@ -23,6 +23,7 @@ ring full stays under 256 MB.
 
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import numpy as np
@@ -253,6 +254,9 @@ def _render_env(cfg, state, e: int, cam, polys, hud, skid, vp_w: int, vp_h: int,
     warm = bool(zoom < f32(0.999 * C.ZOOM * C.SCALE))
     hull_pal = _hull_palette(cfg)
     k = f32(C.PLAYFIELD / 20.0)
+    if draw_particles:          # env e's trails, its env axis kept
+        skid_e = particles.SkidState(**{f.name: getattr(skid, f.name)[e:e + 1]
+                                        for f in dataclasses.fields(skid)})
 
     out = []
     for v in range(n):
@@ -292,12 +296,11 @@ def _render_env(cfg, state, e: int, cam, polys, hud, skid, vp_w: int, vp_h: int,
 
         # ---- skid trails (under the cars, as in the reference's draw order).
         if draw_particles:
-            seg = skid.seg[e].reshape(-1, 4)
-            keep = skid.valid[e].reshape(-1)
-            sel = torch.nonzero(keep).flatten()
+            win, _, keep = particles.segments_window(skid_e, lambda p: to_win(p, v))
+            sel = torch.nonzero(keep[0]).flatten()
             if sel.numel():
                 hw = max(1.0, 0.6 * C.WINDOW_W / vp_w)
-                _paint_skid(plane, to_win(seg[sel, 0:2], v), to_win(seg[sel, 2:4], v),
+                _paint_skid(plane, win[0, sel, 0:2], win[0, sel, 2:4],
                             skid.grass[e].reshape(-1)[sel], hw)
 
         # ---- cars, in id order: wheels with their markers, then the hulls.
