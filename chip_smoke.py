@@ -35,7 +35,12 @@ entry points: the four committed policies evaluated on the card (K1 at
 N = 1, K2 at N = 2, K4/K5 on every step, K6 on every pixel-policy step) and
 three PPO train steps at each recipe's shape, with a checkpoint saved and
 restored on the card. No learner module has a kernel of its own: the JAX
-learner is XLA, so the network and the updates are plain torch ops.
+learner is XLA, so the network and the updates are plain torch ops. Their
+tracks, and the batched facade's (phases 27-29: ``VectorMultiCarRacing``
+runs K1 or K2 and K4/K5 on every step, K6 on every pixel frame), are
+generated on the card by ``track/device.py``, plain torch ops as JAX's is
+XLA. Phase 30 drives K2 and K3 past N = 9, where a warp's arrays move from
+shared memory to a global scratch buffer.
 
 K3 (``csrc/solve_island.cu``, the island solve alone from a ContactBundle
 made outside) is on none of those paths: its path is
@@ -176,8 +181,8 @@ on_grass, count and nearest_beta equal, bonus within 2e-5.
      state nets, 1e-2 * max(1, max|CPU|) on mean and value for the pixel
      nets (tests/test_torch_networks.py's bars)
  20. the learner's evaluation: each committed policy deterministically over
-     100 fresh host-track episodes (seed 7) through learner/evaluate.py, on
-     the card; fails when its mean misses the recorded one by more than
+     100 fresh episodes on tracks generated on the card (seed 7) through
+     learner/evaluate.py; fails when its mean misses the recorded one by more than
      2.58 * sqrt((sigma_rec^2 + sigma_port^2) / 100); mean, std, min, max,
      best agent, tile fraction, length, the three worst episodes, wall
      seconds, env-steps/s and the network's forward ms at E * N rows; each
@@ -211,8 +216,34 @@ on_grass, count and nearest_beta equal, bonus within 2e-5.
      JSONL log, then --resume for one more update (train.main in this
      process); every row finite, the updates 1, 2, 3 (+ the eval row), 4;
      scripts/curve.py reads the log
- 27. the learner JSON line, the facade JSON line, the kernels JSON line,
-     the nvidia-smi line, and the result line
+ 27. tracks generated on the card (track/device.py, plain torch ops: JAX
+     leaves the generator to XLA): a checked pool of 32 and device_reset at
+     E = 4096, N = 2, each timed; every track ok and structurally sound
+     (tests/test_track_device.py's checks); the reset's spawn tick one K2
+     and one K4/K5 launch; one attempt of 32 tracks from uniforms drawn on
+     the card against the same uniforms through the plain run on the CPU:
+     ok flags and tile counts equal, centre points within 2e-2, headings
+     within 2e-3, curb flags differing on under 2% of tiles
+ 28. gym_api.VectorMultiCarRacing at E = 4096, N = 2, obs="pixels", a
+     20-step time limit, 30 steps of cycled actions: autoreset inside the
+     phase; counts zeroed before its reset: K2 and K4/K5 once per reset
+     tick, step and autoreset tick, K6 once per frame, nothing else;
+     steps/s with the numpy outputs
+ 29. the same at N = 1, obs="state" (K1), and at N = 2, obs="none"
+ 30. K2 and K3 past N = 9, where a warp's arrays (244,936 bytes at N = 10)
+     leave the block's shared memory for a global scratch buffer: at N = 6
+     and 8 (shared layout; its bytes are held against the parent's by
+     compare_parent.py) the scratch layout forced onto 7 slots within the
+     plain versions' bars; at N = 10 and 12, E = 64: reset and drive on the
+     card to a quarter of the envs near and a contact (K2 and K4/K5
+     counted), K2 against
+     the plain island on the all-near spawn tick and the driven state, K3
+     against world.world_step on the driven state (the island bars; near
+     envs, live contacts), the wrapper's scratch slots byte-equal to 7
+     slots, two launches bit-identical, K2's and K3's ms and bounds
+ 31. the learner JSON line, the facade JSON line, the generation JSON line
+     (phases 27-30), the kernels JSON line, the nvidia-smi line, and the
+     result line
 
 The script imports nothing of JAX or of the JAX package.
 """
@@ -234,6 +265,7 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from multi_car_racing_tpu_torch import EnvConfig, _cuda, checkpoint, convert  # noqa: E402
+from multi_car_racing_tpu_torch import config as C  # noqa: E402
 from multi_car_racing_tpu_torch.learner import evaluate, ppo as lppo  # noqa: E402
 from multi_car_racing_tpu_torch import env as penv, obs as pobs, seeding  # noqa: E402
 from multi_car_racing_tpu_torch import gym_api, monitor, train  # noqa: E402
@@ -243,6 +275,7 @@ from multi_car_racing_tpu_torch.physics import tire, track_cases, track_engine  
 from multi_car_racing_tpu_torch.physics import world  # noqa: E402
 from multi_car_racing_tpu_torch.physics.collide import ContactState  # noqa: E402
 from multi_car_racing_tpu_torch.physics.state import apply_controls, create_cars  # noqa: E402
+from multi_car_racing_tpu_torch.track import device as tdev  # noqa: E402
 from multi_car_racing_tpu_torch.util import tree_leaves, tree_map  # noqa: E402
 
 E = 4096
@@ -333,6 +366,19 @@ PPO_E = 1024
 PPO_DECISIONS = 32              # decisions per chunk
 PPO_REPEAT = 4                  # physics steps per decision
 PPO_CHUNKS = 9                  # 9 * 128 = 1152 steps, past the 1000-step limit
+# Phases 27-29: tracks generated on the card, and the batched facade.
+GEN_POOL, GEN_SEED = 32, 5      # the checked pool's size (VectorMultiCarRacing's default)
+VEC_SEED = 9
+VEC_LIMIT, VEC_STEPS = 20, 30   # the facade's time limit and steps: the autoreset fires
+# Phase 30: K2 and K3 past N = 9, where a warp's arrays (196,252 bytes at
+# N = 9, 244,936 at N = 10) leave the H100's 232,448 bytes of shared memory a
+# block for a global scratch buffer.
+NARROW_NS = (6, 8)              # shared layout, held byte-equal to the scratch layout
+WIDE_NS = (10, 12)
+WIDE_E = 64
+WIDE_NEAR_SHARE = 0.25          # drive until this share of the envs is near, and a contact
+WIDE_MAX_STEPS = 400
+SCRATCH_SLOTS = 7               # forced scratch slots: each warp loops over ~9 of 64 envs
 
 
 def phase(msg: str) -> None:
@@ -719,6 +765,8 @@ def ptxas_table(name: str) -> dict:
             cur = next((k for k in ("near_pass", "far_pass", "list_pass", "solve_pass",
                                     "joints_island", "track_pass", "paint_view")
                         if words and k in words[0]), ln)
+            if words and "ILb1E" in words[0]:     # the global-scratch instance of a template
+                cur += "_scratch"
             out[cur] = {}
         elif cur is not None and "spill stores" in ln:
             out[cur]["spill_stores"] = int(ln.split("bytes spill stores")[0].split()[-1])
@@ -731,7 +779,7 @@ def ptxas_table(name: str) -> dict:
 def spawn_batch(cfg, envs: int, seed: int, dev):
     """The state before a spawn tick at ``envs`` envs from the SEEDS tracks,
     episodes drawn from ``seed``."""
-    pool = penv.make_track_pool(cfg, SEEDS, device=dev)
+    pool = penv.make_host_track_pool(cfg, SEEDS, device=dev)
     idx, orders, dirs = penv.draw_episodes(cfg, envs, len(SEEDS),
                                            torch.Generator(device=dev).manual_seed(seed))
     return penv.spawn_state(cfg, tree_map(lambda x: x.index_select(0, idx), pool), orders, dirs)
@@ -1059,7 +1107,7 @@ def rollout_phase(smi: str, dev: torch.device) -> dict:
     gone through K2 and K4/K5, and neither K1 nor the plain track pass ran."""
     cfg = EnvConfig(num_agents=ROLLOUT_N)      # random direction, 1000-step limit
     t0 = time.perf_counter()
-    pool = penv.make_track_pool(cfg, POOL_SEEDS, device=dev)
+    pool = penv.make_host_track_pool(cfg, POOL_SEEDS, device=dev)
     gen = torch.Generator(device=dev).manual_seed(0)
     idx, orders, dirs = penv.draw_episodes(cfg, E, len(POOL_SEEDS), gen)
     fused_world.island_step.launches = fused_world.island_step.contact_launches = 0
@@ -1442,6 +1490,333 @@ def pixel_rollout_phase(smi: str, dev: torch.device, pool) -> dict:
     return out
 
 
+def track_structure(tracks, label: str) -> dict:
+    """tests/test_track_device.py's structural checks on every track of a
+    batch: 200 <= tiles <= max_tiles, valid tiles = n_tiles, centre points
+    finite and inside the playfield, 10 < curb tiles < n_tiles, and the loop
+    closed as the generator closes it (mcr:283-291: the gap between the
+    last and the first point, each axis weighted by the first tile's
+    direction, at most one detail step). The plain distance of that gap is
+    reported (JAX's test holds it under three detail steps on its 8 tracks;
+    the weighted test lets an axis the first tile barely weighs open
+    further)."""
+    n = tracks.n_tiles.long()
+    mt = tracks.max_tiles
+    first = tracks.xy[:, 0]
+    last = torch.gather(tracks.xy, 1, (n - 1)[:, None, None].expand(-1, 1, 2))[:, 0]
+    b0 = tracks.beta[:, 0]
+    glue = torch.sqrt(torch.square(torch.cos(b0) * (first[:, 0] - last[:, 0]))
+                      + torch.square(torch.sin(b0) * (first[:, 1] - last[:, 1])))
+    gap = (first - last).norm(dim=-1) / C.TRACK_DETAIL_STEP
+    inside = torch.arange(mt, device=n.device)[None] < n[:, None]
+    xy_ok = (torch.isfinite(tracks.xy).all(-1) & (tracks.xy.abs() < C.PLAYFIELD).all(-1)) | ~inside
+    curbs = tracks.has_curb.sum(1)
+    checks = {"tiles_in_range": bool(((n >= 200) & (n <= mt)).all()),
+              "valid_is_n_tiles": bool((tracks.valid.sum(1) == n).all()),
+              "inside_playfield": bool(xy_ok.all()),
+              "closed": bool((glue <= C.TRACK_DETAIL_STEP * (1 + 1e-5)).all()),
+              "curbs": bool(((curbs > 10) & (curbs < n)).all())}
+    wide = (gap >= 3).nonzero().flatten()
+    out = {"tracks": int(n.numel()), "mean_tiles": float(n.float().mean()),
+           "min_tiles": int(n.min()), "max_tiles": int(n.max()), **checks,
+           "max_gap_in_steps": float(gap.max()), "gaps_of_3_steps_or_more": int(wide.numel()),
+           "first_heading_of_those": [float(b0[i]) for i in wide[:8].tolist()]}
+    phase(f"{label}: {out['tracks']} tracks, tiles mean {out['mean_tiles']:.2f} (min "
+          f"{out['min_tiles']}, max {out['max_tiles']}); structure {checks}; the closing gap "
+          f"at most {out['max_gap_in_steps']:.3f} detail steps, {int(wide.numel())} tracks at 3 "
+          f"or more (first headings {out['first_heading_of_those']})")
+    if not all(checks.values()):
+        raise AssertionError(f"{label}: a track fails the structural checks {checks}")
+    return out
+
+
+def generation_phase(smi: str, dev: torch.device) -> dict:
+    """Phase 27: tracks generated on the card (track/device.py, plain torch
+    ops: JAX leaves it to XLA). A checked pool of GEN_POOL and device_reset
+    at E = 4096, N = 2, each timed (host clock, synchronised), each track
+    ok and structurally sound, the reset's spawn tick one K2 and one K4/K5
+    launch (counts zeroed just before); then one attempt on GEN_POOL
+    uniforms drawn on the card, held against the same uniforms through the
+    plain run on the CPU: ok flags and tile counts equal, centre points
+    within 2e-2, headings within 2e-3, curb flags differing on under 2% of
+    tiles (tests/test_torch_track_device.py's bars)."""
+    cfg = EnvConfig(num_agents=2)
+    g = torch.Generator(device=dev).manual_seed(GEN_SEED)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pool = penv.make_track_pool_checked(cfg, g, GEN_POOL)
+    torch.cuda.synchronize()
+    pool_s = time.perf_counter() - t0
+    zero_counts()
+    t0 = time.perf_counter()
+    state = penv.device_reset(cfg, g, E)
+    torch.cuda.synchronize()
+    reset_s = time.perf_counter() - t0
+    counts = read_counts()
+    failed = int(state.done.sum())
+    assert_finite(state)
+    phase(f"checked pool of {GEN_POOL} in {pool_s:.3f} s; device_reset E={E}, N=2 in "
+          f"{reset_s:.3f} s ({failed} envs failed generation); launches {counts} on {smi}")
+    want = {"k1": 0, "k2": 1, "k3": 0, "k4_k5": 1, "k6": 0, "plain_track_calls": 0,
+            "plain_paint_calls": 0}
+    if failed or counts != want or int(state.tile_visited_count.sum()) == 0:
+        raise AssertionError(f"device_reset: {failed} failed envs, counts {counts}")
+    out = {"pool_s": pool_s, "reset_s": reset_s, "reset_launches": counts,
+           "pool": track_structure(pool, f"pool of {GEN_POOL}"),
+           "reset": track_structure(state.track, f"device_reset E={E}")}
+    u = torch.rand((GEN_POOL, C.CHECKPOINTS, 2), generator=g, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    card = tdev._attempt(*tdev.checkpoints_from_uniforms(u), cfg.max_tiles, cfg.max_track_points)
+    torch.cuda.synchronize()
+    attempt_s = time.perf_counter() - t0
+    cpu = tdev._attempt(*tdev.checkpoints_from_uniforms(u.cpu()), cfg.max_tiles,
+                        cfg.max_track_points)
+    built = [tdev._build_track(*parts[:4], parts[4].clamp(min=1), cfg.max_tiles)
+             for parts in (card, cpu)]
+    ok_c, ok_p = card[5].cpu(), cpu[5]
+    L = cpu[4]
+    same = bool(torch.equal(ok_c, ok_p)) and bool(torch.equal(card[4].cpu(), L))
+    xy_err = beta_err = curb_miss = 0.0
+    for e in ok_p.nonzero().flatten().tolist():
+        n = int(L[e])
+        xy_err = max(xy_err, float((built[0].xy[e, :n].cpu() - built[1].xy[e, :n]).abs().max()))
+        beta_err = max(beta_err,
+                       float((built[0].beta[e, :n].cpu() - built[1].beta[e, :n]).abs().max()))
+        curb_miss = max(curb_miss, float((built[0].has_curb[e, :n].cpu()
+                                          != built[1].has_curb[e, :n]).float().mean()))
+    out.update(attempt_s=attempt_s, card_vs_cpu={
+        "ok_and_tiles_equal": same, "ok": int(ok_p.sum()), "max_xy_err": xy_err,
+        "max_beta_err": beta_err, "max_curb_miss_share": curb_miss})
+    phase(f"one attempt of {GEN_POOL} tracks on the card in {attempt_s:.3f} s "
+          f"({cfg.max_track_points} walk steps); card vs CPU on the same uniforms: ok flags and "
+          f"tile counts equal {same} ({int(ok_p.sum())} ok), max |xy| err {xy_err:.3g}, max "
+          f"|beta| err {beta_err:.3g}, max curb miss share {curb_miss:.3g}")
+    if not (same and xy_err <= 2e-2 and beta_err <= 2e-3 and curb_miss < 0.02):
+        raise AssertionError(f"tracks on the card differ from the CPU's: {out['card_vs_cpu']}")
+    return out
+
+
+def vector_phase(obs: str, n: int, smi: str, dev: torch.device) -> dict:
+    """Phases 28-29: gym_api.VectorMultiCarRacing at E = 4096 with ``n`` cars
+    and observation ``obs``, its time limit VEC_LIMIT steps: reset (the
+    checked pool, device_reset), then VEC_STEPS steps of cycled actions,
+    which autoreset inside the phase. Counts zeroed just before the reset
+    and read just after the last step: the island (K1 at one car, K2 above)
+    and K4/K5 once per reset tick, step and autoreset tick, K6 once per
+    frame (pixels: the reset's and each step's), nothing else; the
+    observations' shape, rewards finite; steps/s (host clock around each
+    step with its numpy outputs)."""
+    venv = gym_api.VectorMultiCarRacing(E, num_agents=n, obs=obs, seed=VEC_SEED,
+                                        max_episode_steps=VEC_LIMIT, device=dev,
+                                        use_random_direction=n > 1)
+    actions = cycled_actions(E, n, dev).cpu().numpy()
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    o = venv.reset()
+    reset_s = time.perf_counter() - t0
+    resets = 0
+    wall = 0.0
+    for t in range(VEC_STEPS):
+        resets += int(bool(penv.episode_over(venv.cfg, venv.state).any()))
+        t0 = time.perf_counter()
+        o, r, d, _ = venv.step(actions[t % 8])
+        wall += time.perf_counter() - t0
+        if not np.isfinite(r).all() or r.shape != (E, n) or d.shape != (E,):
+            raise AssertionError(f"vector {obs}: rewards {r.shape} finite "
+                                 f"{np.isfinite(r).all()}, dones {d.shape}")
+    torch.cuda.synchronize()
+    counts = read_counts()
+    island, other = ("k1", "k2") if n == 1 else ("k2", "k1")
+    ticks = 1 + VEC_STEPS + resets
+    want = {island: ticks, other: 0, "k3": 0, "k4_k5": ticks,
+            "k6": 1 + VEC_STEPS if obs == "pixels" else 0, "plain_track_calls": 0,
+            "plain_paint_calls": 0}
+    shape = {"pixels": (E, n, 96, 96, 3), "state": (E, n, pobs.STATE_OBS_DIM)}.get(obs)
+    out = {"obs": obs, "num_agents": n, "envs": E, "steps": VEC_STEPS, "limit": VEC_LIMIT,
+           "reset_s": reset_s, "step_s": wall, "steps_per_s": VEC_STEPS / wall,
+           "env_steps_per_s": E * VEC_STEPS / wall, "autoresets": resets, "launches": counts}
+    phase(f"VectorMultiCarRacing obs={obs}, E={E}, N={n}: reset {reset_s:.3f} s; {VEC_STEPS} "
+          f"steps in {wall:.3f} s = {out['steps_per_s']:.2f} steps/s = "
+          f"{out['env_steps_per_s']:.1f} env-steps/s on {smi}; {resets} steps began with an "
+          f"autoreset; launches {counts}")
+    if counts != want or resets == 0 or (None if o is None else o.shape) != shape:
+        raise AssertionError(f"vector {obs}: counts {counts} (expected {want}), {resets} "
+                             f"autoresets, obs {None if o is None else o.shape}")
+    venv.close()
+    return out
+
+
+def wide_states(n: int, envs: int, dev):
+    """(cfg, spawn, driven, steps) at ``n`` cars: ``envs`` envs on the SEEDS
+    tracks in turn (spawn order 0..n-1, CCW). ``spawn``: the state before
+    the spawn tick with each odd car pulled toward its even partner by
+    ALL_NEAR_PULL of their 6 m, phase 6's all-near input pair by pair (every
+    env near). ``driven``: the state after the spawn tick driven by env.step
+    on the card with cycled actions until WIDE_NEAR_SHARE of the envs are
+    broadphase-near and the next step's Collide pass has a live row in some
+    env (at least 10 steps, at most WIDE_MAX_STEPS), whose step count is
+    returned."""
+    cfg = EnvConfig(num_agents=n, use_random_direction=False)
+    pool = penv.make_host_track_pool(cfg, SEEDS, device=dev)
+    idx = torch.arange(envs, device=dev) % len(SEEDS)
+    order = torch.arange(n, dtype=torch.int32, device=dev).expand(envs, n).contiguous()
+    tracks = tree_map(lambda x: x.index_select(0, idx), pool)
+    dirs = torch.zeros(envs, dtype=torch.bool, device=dev)
+    spawn = penv.spawn_state(cfg, tracks, order, dirs)
+    hc, wc = spawn.cars.hull_c.clone(), spawn.cars.wheel_c.clone()
+    pull = ALL_NEAR_PULL * (hc[:, 0::2] - hc[:, 1::2])
+    hc[:, 1::2] += pull
+    wc[:, 1::2] += pull[:, :, None]
+    spawn = spawn.replace(cars=spawn.cars.replace(hull_c=hc, wheel_c=wc))
+    state = penv.reset_from_parts(cfg, tracks, order, dirs)
+    actions = cycled_actions(envs, n, dev)
+    for t in range(WIDE_MAX_STEPS + 1):
+        pre = apply_controls(state.cars, actions[t % 8])
+        share = float(fused_world.near_flags(pre).float().mean())
+        if t == WIDE_MAX_STEPS or (t >= 10 and share >= WIDE_NEAR_SHARE
+                                   and live_rows(pre, n)[1] > 0):
+            break
+        state, _, _ = penv.step(cfg, state, actions[t % 8])
+    return cfg, spawn, state.replace(cars=pre), t
+
+
+def scratch_checks(inputs, n: int, label: str) -> dict:
+    """K2 and K3 forced into the global scratch layout with SCRATCH_SLOTS
+    slots (each warp looping over several envs) on one island input: K2
+    against the plain island and K3 against world.world_step within their
+    bars, and the elements where each differs from the wrapper's own layout
+    (shared memory up to N = 9: another build of the same arithmetic, whose
+    contractions into fused multiply-adds may differ in the last bit; past
+    N = 9 the same build, so 0)."""
+    pre, road, cs = inputs
+    fin, ls_in = fused_world.pack_inputs(pre, road)
+    out2 = [fused_world.launch_contacts(fin, ls_in, cs, n, scratch_warps=w)
+            for w in (None, SCRATCH_SLOTS)]
+    k_cars, k_skid = fused_world.unpack_outputs(pre, *out2[1][:2])
+    devs, id_miss, skid_miss = compare_contact_step(
+        (k_cars, k_skid, out2[1][2]), fused_world.island_step_plain(*inputs), pre, cs,
+        f"K2 in {SCRATCH_SLOTS} scratch slots vs plain ({label})")
+    if id_miss > WIDE_E // 1000 + 1 or skid_miss > WIDE_E // 1000 + 1:
+        raise AssertionError(f"{label}: {id_miss} envs' ids, {skid_miss} skid flags differ")
+    post, force, motor, bundle = solve_inputs(pre, road, cs, n)[:4]
+    fin3, ls3 = fused_world.pack_solve_inputs(post, force, motor)
+    out3 = [fused_world.launch_solve(fin3, ls3, bundle, n, scratch_warps=w)
+            for w in (None, SCRATCH_SLOTS)]
+    envs = post.hull_a.shape[0]
+    p_cars, p_bundle = world.world_step(post, force, motor, contacts=bundle)
+    k3 = post.replace(**fused_world._solved_fields(out3[1][0], out3[1][1], envs, n))
+    devs3 = compare_cars(k3, p_cars, post, f"K3 in {SCRATCH_SLOTS} scratch slots vs plain "
+                                           f"({label})")
+    devs3.update(compare_fields(
+        {"normal_imp": out3[1][2], "tangent_imp": out3[1][3]},
+        {"normal_imp": p_bundle.normal_imp, "tangent_imp": p_bundle.tangent_imp},
+        {"normal_imp": bundle.normal_imp, "tangent_imp": bundle.tangent_imp},
+        f"K3 in {SCRATCH_SLOTS} scratch slots vs plain ({label})"))
+    torch.cuda.synchronize()
+
+    def differ(a, b):
+        return sum(int((x != y).sum()) for x, y in zip(a, b))
+
+    k2_out = [[o[0], o[1], o[2].normal_imp, o[2].tangent_imp, o[2].ids] for o in out2]
+    out = {"k2_max_err_over_bar": max(max(rv, rs) for _, rv, rs in devs.values()),
+           "k3_max_err_over_bar": max(max(rv, rs) for _, rv, rs in devs3.values()),
+           "k2_elements_differing_from_wrapper_layout": differ(*k2_out),
+           "k3_elements_differing_from_wrapper_layout": differ(*out3)}
+    phase(f"{label}: K2 and K3 in {SCRATCH_SLOTS} scratch slots within their bars; elements "
+          f"differing from the wrapper's layout: K2 {out['k2_elements_differing_from_wrapper_layout']}"
+          f", K3 {out['k3_elements_differing_from_wrapper_layout']}")
+    return out
+
+
+def wide_contact_phase(dev: torch.device, smi: str) -> dict:
+    """Phase 30: K2 and K3 past N = 9, where a warp's arrays leave shared
+    memory for the global scratch. At N = 6 and 8 (the shared layout) the
+    scratch layout forced with SCRATCH_SLOTS slots, on a driven near state,
+    within the bars of the plain versions (scratch_checks; the shared
+    layout's bytes are held against the parent's by compare_parent.py). At
+    N = 10 and 12 (WIDE_E envs): the reset and the drive to a near state
+    with a contact through env.step on the card (K2 and K4/K5 once per
+    tick, counts zeroed just before the reset), then K2 against the plain
+    island on the all-near spawn tick and on the driven state, and K3
+    against world.world_step on the driven state, within their bars (both inputs
+    with near envs, the driven one with live contacts); the scratch layout
+    with SCRATCH_SLOTS slots byte-equal to the wrapper's (the same build),
+    two launches bit-identical, and their ms and bounds on the driven
+    state."""
+    out = {}
+    for n in NARROW_NS:
+        _, _, driven, steps = wide_states(n, WIDE_E, dev)
+        out[f"N={n}"] = {"driven_steps": steps, **scratch_checks(
+            (driven.cars, driven.wheel_on_road, driven.contacts), n,
+            f"N={n}, E={WIDE_E}, driven {steps} steps")}
+    for n in WIDE_NS:
+        mm = len(collide.car_pairs(n)) * collide.M_PER_PAIR
+        lib2 = fused_world._library(fused_world.CONTACT_KERNEL)
+        lib3 = fused_world._library(fused_world.SOLVE_KERNEL)
+        slots = (lib2.contact_island_scratch_warps(WIDE_E, n, mm),
+                 lib3.solve_island_scratch_warps(WIDE_E, n, mm))
+        floats = lib2.contact_island_warp_floats(n, mm)
+        zero_counts()
+        cfg, spawn, state, steps = wide_states(n, WIDE_E, dev)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        assert_finite(state)
+        want = {"k1": 0, "k2": 1 + steps, "k3": 0, "k4_k5": 1 + steps, "k6": 0,
+                "plain_track_calls": 0, "plain_paint_calls": 0}
+        phase(f"N={n}, E={WIDE_E}: {mm} rows an env, {4 * floats} bytes of arrays a warp; "
+              f"scratch slots K2 {slots[0]}, K3 {slots[1]}; reset + {steps} env steps on the "
+              f"card: launches {counts}")
+        if counts != want or min(slots) <= 0:
+            raise AssertionError(f"N={n}: counts {counts} (expected {want}), scratch {slots}")
+        driven = (state.cars, state.wheel_on_road, state.contacts)
+        res = {"rows": mm, "warp_bytes": 4 * floats, "driven_steps": steps,
+               "scratch_slots": {"k2": slots[0], "k3": slots[1]}, "launches": counts}
+        worst = {}
+        for name, ins in (("all-near spawn tick", (spawn.cars, spawn.wheel_on_road,
+                                                   spawn.contacts)),
+                          ("driven", driven)):
+            label = f"N={n} {name}"
+            k_out = fused_world.island_step(*ins)
+            near = int(fused_world.launch_contacts.near_count)
+            devs, id_miss, skid_miss = compare_contact_step(
+                k_out, fused_world.island_step_plain(*ins), ins[0], ins[2],
+                f"K2 vs plain ({label})")
+            live = int(k_out[2].normal_imp.gt(0).any(-1).any(-1).sum())
+            phase(f"{label}: near envs {near}, envs with a normal impulse {live}; ids differing "
+                  f"in {id_miss} envs, skid flags {skid_miss}")
+            if id_miss > WIDE_E // 1000 + 1 or skid_miss > WIDE_E // 1000 + 1:
+                raise AssertionError(f"K2 vs plain ({label}): {id_miss} envs' ids, {skid_miss} "
+                                     f"skid flags differ")
+            if near == 0 or (name == "driven" and live == 0):
+                raise AssertionError(f"{label}: no near env or no live contact")
+            worst[f"k2 {name}"] = max(max(rv, rs) for _, rv, rs in devs.values())
+            res[f"{name.replace(' ', '_')}_near_envs"] = near
+            res[f"{name.replace(' ', '_')}_live_envs"] = live
+        d3 = compare_solve(solve_inputs(*driven, n), n, f"K3 vs plain (N={n} driven)")
+        worst["k3 driven"] = max(max(rv, rs) for _, rv, rs in d3.values())
+        slot_checks = scratch_checks(driven, n, f"N={n} driven, the wrapper's {slots[0]} / "
+                                               f"{slots[1]} slots against {SCRATCH_SLOTS}")
+        fin, ls_in = fused_world.pack_inputs(driven[0], driven[1])
+        a, b = (fused_world.launch_contacts(fin, ls_in, driven[2], n) for _ in range(2))
+        same = all(torch.equal(x, y) for x, y in zip(
+            (a[0], a[1], a[2].normal_imp, a[2].tangent_imp, a[2].ids),
+            (b[0], b[1], b[2].normal_imp, b[2].tangent_imp, b[2].ids)))
+        phase(f"N={n} driven: two K2 launches bit-identical {same}")
+        if (not same or slot_checks["k2_elements_differing_from_wrapper_layout"]
+                or slot_checks["k3_elements_differing_from_wrapper_layout"]):
+            raise AssertionError(f"N={n}: the scratch layout is not reproducible")
+        res.update(max_err_over_bar=worst, slot_checks=slot_checks,
+                   two_launches_identical=same, k2=k2_time_and_bound(*driven, n))
+        phase(f"K2 at N={n} on the driven state: {res['k2']['ms']:.5f} ms/launch, bound "
+              f"{res['k2']['bound_ms']:.5f} ms ({res['k2']['bound_by']}), "
+              f"{res['k2']['near_envs']} near envs, on {smi}")
+        res["k3"] = solve_times(*driven, n)
+        out[f"N={n}"] = res
+    return out
+
+
 def zero_counts() -> None:
     fused_world.island_step.launches = fused_world.island_step.contact_launches = 0
     track_engine.track_pass.launches = track_engine.track_pass_plain.cuda_calls = 0
@@ -1522,7 +1897,8 @@ def network_phase(dev: torch.device) -> dict:
 
 def evaluation_phase(smi: str, dev: torch.device) -> dict:
     """Phase 20: each committed policy evaluated deterministically over
-    LEARNER_EPISODES fresh host-track episodes (seed LEARNER_SEED) on the
+    LEARNER_EPISODES fresh episodes on tracks generated on the card
+    (evaluate.episode_state: env.device_reset, seed LEARNER_SEED) on the
     card, held to its recorded mean by a two-sample bound."""
     out, specs = {}, evaluate.policy_specs()
     for name in POLICY_NAMES:
@@ -1547,8 +1923,7 @@ def evaluation_phase(smi: str, dev: torch.device) -> dict:
         wall = time.perf_counter() - t0
         counts = read_counts()
         per_episode = res["returns"].mean(-1).cpu()
-        seeds = evaluate.episode_seeds(LEARNER_SEED, LEARNER_EPISODES)
-        worst = [{"episode": i, "track_seed": seeds[i], "return": float(per_episode[i]),
+        worst = [{"episode": i, "return": float(per_episode[i]),
                   "tiles": res["tiles"][i].tolist(), "n_tiles": int(res["n_tiles"][i]),
                   "length": int(res["length"][i])}
                  for i in torch.argsort(per_episode)[:LEARNER_WORST].tolist()]
@@ -1573,8 +1948,8 @@ def evaluation_phase(smi: str, dev: torch.device) -> dict:
               f"{bar:.4f}; {wall:.3f} s = {out[name]['env_steps_per_s']:.1f} env-steps/s on "
               f"{smi} (reset {reset_s:.3f} s); forward {forward_ms:.4f} ms at "
               f"{out[name]['forward_rows']} rows; launches {counts}; worst episodes "
-              + "; ".join(f"{w['return']:.1f} ({w['tiles']} of {w['n_tiles']} tiles, track seed "
-                          f"{w['track_seed']})" for w in worst))
+              + "; ".join(f"{w['return']:.1f} ({w['tiles']} of {w['n_tiles']} tiles, episode "
+                          f"{w['episode']})" for w in worst))
         if not miss <= bar:
             raise AssertionError(f"{name}: evaluated {s['eval_return']:.4f}, recorded "
                                  f"{rec['mean']}: the miss {miss:.4f} exceeds {bar:.4f}")
@@ -1661,22 +2036,23 @@ def ppo_phase(label: str, env_cfg, pcfg, smi: str, dev: torch.device) -> dict:
 
 
 def learner_phases(smi: str, dev: torch.device) -> dict:
-    phase(f"19/27 the committed policies' networks on the card vs the CPU ({LEARNER_NET_OBS} "
+    phase(f"19/31 the committed policies' networks on the card vs the CPU ({LEARNER_NET_OBS} "
           f"observations each, after {LEARNER_DRIVE} driven steps)")
     nets = network_phase(dev)
-    phase(f"20/27 the committed policies evaluated on the card: {LEARNER_EPISODES} fresh "
-          f"host-track episodes each, seed {LEARNER_SEED}, deterministic")
+    phase(f"20/31 the committed policies evaluated on the card: {LEARNER_EPISODES} fresh "
+          f"episodes each on tracks generated on the card, seed {LEARNER_SEED}, "
+          f"deterministic")
     t20 = time.perf_counter()
     evals = evaluation_phase(smi, dev)
     phase(f"phase 20 took {time.perf_counter() - t20:.1f} s")
     base = dict(rollout_len=32, action_repeat=4, train_grass_cost=0.5, train_skip_cost=2.0,
                 anneal_lr=True, epochs=4, minibatches=8)
-    phase("21/27 three PPO updates at the pixel recipe's shape (multi2px: N=2, E=1024, T=32, "
+    phase("21/31 three PPO updates at the pixel recipe's shape (multi2px: N=2, E=1024, T=32, "
           "R=4, K=2, squash, lr 1e-4, kl_target 0.03)")
     pixel = ppo_phase("pixel PPO", EnvConfig(num_agents=2), lppo.PPOConfig(
         num_envs=1024, obs_type="pixels", frame_stack=2, squash_actions=True, lr=1e-4,
         kl_target=0.03, total_updates=1500, **base), smi, dev)
-    phase("22/27 three PPO updates at the state recipe's shape (CarRacing-v0, E=1024, T=32, "
+    phase("22/31 three PPO updates at the state recipe's shape (CarRacing-v0, E=1024, T=32, "
           "R=4, normalize, width 512)")
     state = ppo_phase("state PPO", EnvConfig(num_agents=1, use_random_direction=False,
                                              backwards_flag=False), lppo.PPOConfig(
@@ -1896,7 +2272,7 @@ def report(name: str, source: str, replaces: str, launches: int, max_abs_err: fl
 
 def main() -> int:
     start = time.perf_counter()
-    phase("1/27 device")
+    phase("1/31 device")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs the port on the card only",
               file=sys.stderr)
@@ -1910,7 +2286,7 @@ def main() -> int:
     phase(f"device {kind} | nvidia-smi: {smi} | torch {torch.__version__} "
           f"cuda {torch.version.cuda} | python {sys.version.split()[0]}")
 
-    phase("2/27 build (one nvcc per kernel, started together)")
+    phase("2/31 build (one nvcc per kernel, started together)")
     t0 = time.perf_counter()
     kernels = (fused_world.KERNEL, fused_world.CONTACT_KERNEL, fused_world.SOLVE_KERNEL,
                track_engine.KERNEL, pixels.KERNEL)
@@ -1934,7 +2310,7 @@ def main() -> int:
     cfg = EnvConfig(num_agents=1, use_random_direction=False)
     actions = cycled_actions(E, cfg.num_agents, dev)
 
-    phase(f"3/27 K1 vs plain at E={E} after 20 steps")
+    phase(f"3/31 K1 vs plain at E={E} after 20 steps")
     state = penv.reset_batch(cfg, SEEDS, E)
     for t in range(20):
         state, _, _ = penv.step(cfg, state, actions[t % 8])
@@ -1958,7 +2334,7 @@ def main() -> int:
           f"{KERNEL_TIMING_LAUNCHES} launches); "
           f"{ptx['K1'].get('joints_island', {}).get('registers')} registers")
 
-    phase(f"4/27 small input: {len(SMALL_SEEDS)} envs x {SMALL_STEPS} steps, card vs CPU")
+    phase(f"4/31 small input: {len(SMALL_SEEDS)} envs x {SMALL_STEPS} steps, card vs CPU")
     small = {d: penv.reset_batch(cfg, SMALL_SEEDS, len(SMALL_SEEDS), device=d)
              for d in ("cuda", "cpu")}
     returns = {d: 0.0 for d in small}
@@ -1973,7 +2349,7 @@ def main() -> int:
     if not (ret_dev <= 2e-5 and pos_dev <= 1e-3):
         raise AssertionError("small-input run on the card disagrees with the CPU path")
 
-    phase(f"5/27 N=1 main path: reset_batch E={E} ({len(SEEDS)} tracks) + {WARMUP} "
+    phase(f"5/31 N=1 main path: reset_batch E={E} ({len(SEEDS)} tracks) + {WARMUP} "
           f"warm-up + {T} steps")
     run1 = main_path(cfg, actions, "N=1", smi)
     times1 = kernel_times(cfg, run1, actions)
@@ -1985,7 +2361,7 @@ def main() -> int:
 
     cfg2 = EnvConfig(num_agents=2, use_random_direction=False)
     actions2 = cycled_actions(E, cfg2.num_agents, dev)
-    phase(f"6/27 K2 vs plain at N=2, E={E}, driven until {NEAR_SHARE:.0%} of envs are near")
+    phase(f"6/31 K2 vs plain at N=2, E={E}, driven until {NEAR_SHARE:.0%} of envs are near")
     state = penv.reset_batch(cfg2, SEEDS, E)
     for t in range(NEAR_MAX_STEPS + 1):
         pre = apply_controls(state.cars, actions2[t % 8])
@@ -2047,7 +2423,7 @@ def main() -> int:
         raise AssertionError(f"K2 vs plain (all-near): {id_near} envs' ids, {skid_near} skid "
                              f"flags differ")
 
-    phase("7/27 rear-end ram (N=4, E=1): K2 vs plain at the first step with contact")
+    phase("7/31 rear-end ram (N=4, E=1): K2 vs plain at the first step with contact")
     ram_cfg, ram, ram_act, ram_t = ram_state(dev)
     ram_pre = apply_controls(ram.cars, ram_act)
     k_ram = fused_world.island_step(ram_pre, ram.wheel_on_road, ram.contacts)
@@ -2063,7 +2439,7 @@ def main() -> int:
     if ram_id_miss:
         raise AssertionError("ram: K2's manifold ids differ from the plain version's")
 
-    phase(f"7/27 (cont.) N=4, E={N4_E}, driven until {NEAR_SHARE:.0%} of envs are near: K2 vs "
+    phase(f"7/31 (cont.) N=4, E={N4_E}, driven until {NEAR_SHARE:.0%} of envs are near: K2 vs "
           f"plain, the far pass, and K2 beside K3")
     cfg4 = EnvConfig(num_agents=4, use_random_direction=False)
     actions4 = cycled_actions(N4_E, 4, dev)
@@ -2096,7 +2472,7 @@ def main() -> int:
                                                  pile[2], "K2 vs plain (N=4, > 32 live rows)")
     phase(f"> 32 live rows: envs whose manifold ids differ {id_pile}")
 
-    phase("8/27 determinism: two K2 launches on phase 6's input")
+    phase("8/31 determinism: two K2 launches on phase 6's input")
     fin, ls_in = fused_world.pack_inputs(pre, state.wheel_on_road)
     a = fused_world.launch_contacts(fin, ls_in, cs_pre, cfg2.num_agents)
     b = fused_world.launch_contacts(fin, ls_in, cs_pre, cfg2.num_agents)
@@ -2117,19 +2493,19 @@ def main() -> int:
     # K3's path: world_step_batched on the card, its count set to 0 here and
     # read after phase 11; each call below launches K3 once.
     fused_world.world_step_batched.launches = 0
-    phase(f"9/27 K3 vs plain at N=2, E={E}, full {cfg2.velocity_iters}/"
+    phase(f"9/31 K3 vs plain at N=2, E={E}, full {cfg2.velocity_iters}/"
           f"{cfg2.position_iters}, on phase 6's input (plain tire model, Collide, make_bundle)")
     solve2 = solve_inputs(pre, state.wheel_on_road, cs_pre, 2)
     devs3 = compare_solve(solve2, 2, "K3 vs plain (N=2)")
 
-    phase("10/27 K3 vs plain on phase 7's ram (N=4, E=1) and at N=1, E=4096 (no bundle)")
+    phase("10/31 K3 vs plain on phase 7's ram (N=4, E=1) and at N=1, E=4096 (no bundle)")
     devs3.update({f"ram {f}": v for f, v in compare_solve(
         solve_inputs(ram_pre, ram.wheel_on_road, ram.contacts, 4), 4,
         "K3 vs plain (ram, N=4)").items()})
     devs3.update({f"N=1 {f}": v for f, v in compare_solve(
         solve_inputs(pre1, road1, None, 1), 1, "K3 vs plain (N=1)").items()})
 
-    phase("11/27 K2 vs plain Collide + K3 on phase 6's input")
+    phase("11/31 K2 vs plain Collide + K3 on phase 6's input")
     post2, _, _, _, skid2, man2 = solve2
     k3_cars, (k3_ni, k3_ti) = fused_world.world_step_batched(*solve2[:4], 2)
     live_list_check(solve2[3], E, "K3 on phase 6's input")
@@ -2146,7 +2522,7 @@ def main() -> int:
     if k3_launches != 4:
         raise AssertionError(f"K3 launched {k3_launches} times on its path, expected 4")
 
-    phase(f"12/27 K3 determinism and times at N=2, E={E} on phase 6's input, beside K2 on {smi}")
+    phase(f"12/31 K3 determinism and times at N=2, E={E} on phase 6's input, beside K2 on {smi}")
     same3 = []
     for solve_in in (solve2, solve_inputs(*near_in, 2)):
         fin3, ls3 = fused_world.pack_solve_inputs(*solve_in[:3])
@@ -2167,7 +2543,7 @@ def main() -> int:
         phase(f"K3 on the {name} input:")
         times3_more[name] = solve_times(*args)
 
-    phase(f"13/27 N=2 main path: reset_batch E={E} ({len(SEEDS)} tracks) + {WARMUP} "
+    phase(f"13/31 N=2 main path: reset_batch E={E} ({len(SEEDS)} tracks) + {WARMUP} "
           f"warm-up + {T} steps")
     run2 = main_path(cfg2, actions2, "N=2", smi)
     times2 = kernel_times(cfg2, run2, actions2)
@@ -2204,7 +2580,7 @@ def main() -> int:
                                                       for _, rv, rs in devs_pile.values())},
                 ptxas=ptx["K2"])
 
-    phase(f"14/27 K4/K5 vs plain at E={E}, N=1 and N=2, and E={N4_E}, N=4: a stepped state, "
+    phase(f"14/31 K4/K5 vs plain at E={E}, N=1 and N=2, and E={N4_E}, N=4: a stepped state, "
           f"a spawn tick, lifted wheels, and the cull's edges (on-road, seam, kerb, off-road, "
           f"self-approach, wheels-only); the cull's probes (wheels only, origins only)")
     checks = {**track_phase(cfg, actions), **track_phase(cfg2, actions2),
@@ -2220,24 +2596,24 @@ def main() -> int:
                              "cand_mean": r["cand_mean"], "cand_max": r["cand_max"]}
                          for k, r in checks.items()})
 
-    phase(f"15/27 state-PPO rollout: E={E}, N={ROLLOUT_N}, pool of {len(POOL_SEEDS)} host "
+    phase(f"15/31 state-PPO rollout: E={E}, N={ROLLOUT_N}, pool of {len(POOL_SEEDS)} host "
           f"tracks, chunks of {ROLLOUT_CHUNK} steps, past the time limit")
     rollout = rollout_phase(smi, dev)
 
-    phase("16/27 K6 vs plain: N=2 spawn tick, steady, mid zoom, camera jitter, mixed and "
+    phase("16/31 K6 vs plain: N=2 spawn tick, steady, mid zoom, camera jitter, mixed and "
           "backward at E=4096; N=1 CW; N=4 ego colour; the golden frames")
-    pool = penv.make_track_pool(EnvConfig(num_agents=2), POOL_SEEDS, device=dev)
+    pool = penv.make_host_track_pool(EnvConfig(num_agents=2), POOL_SEEDS, device=dev)
     t16 = time.perf_counter()
     px_checks = pixel_checks(dev, pool)
     phase(f"phase 16 took {time.perf_counter() - t16:.1f} s")
 
-    phase(f"17/27 pixel main path: reset_batch E={E}, N=2 + {WARMUP} warm-up + {T} steps, a "
+    phase(f"17/31 pixel main path: reset_batch E={E}, N=2 + {WARMUP} warm-up + {T} steps, a "
           f"frame after the reset and after every step")
     t17 = time.perf_counter()
     px_run = pixel_main_path(smi, dev)
     phase(f"phase 17 took {time.perf_counter() - t17:.1f} s")
 
-    phase(f"18/27 pixel-PPO env side: E={PPO_E}, N=2, {PPO_CHUNKS} chunks of {PPO_DECISIONS} "
+    phase(f"18/31 pixel-PPO env side: E={PPO_E}, N=2, {PPO_CHUNKS} chunks of {PPO_DECISIONS} "
           f"decisions x {PPO_REPEAT} steps, autoreset, past the time limit")
     px_rollout = pixel_rollout_phase(smi, dev, pool)
     learner = learner_phases(smi, dev)
@@ -2285,22 +2661,22 @@ def main() -> int:
                                                       "k2_ms_same_input", "live_envs")}
                              for name, t in times3_more.items()},
                 ptxas=ptx["K3"])
-    phase("23/27 the Gym facade on the card: MultiCarRacing-v0 and CarRacing-v0, "
+    phase("23/31 the Gym facade on the card: MultiCarRacing-v0 and CarRacing-v0, "
           f"{FACADE_STEPS} steps each")
     t23 = time.perf_counter()
     facade = {env_id: facade_phase(env_id, smi, dev)
               for env_id in ("MultiCarRacing-v0", "CarRacing-v0")}
     seconds = {"23": time.perf_counter() - t23}
-    phase("24/27 the 600x400 rgb_array painter on the card: the golden frame, and a frame "
+    phase("24/31 the 600x400 rgb_array painter on the card: the golden frame, and a frame "
           "after hard braking")
     t = time.perf_counter()
     facade["rgb_array"] = rgb_array_phase(smi, dev)
     seconds["24"] = time.perf_counter() - t
-    phase("25/27 Monitor: one short episode")
+    phase("25/31 Monitor: one short episode")
     t = time.perf_counter()
     facade["monitor"] = monitor_phase(dev)
     seconds["25"] = time.perf_counter() - t
-    phase("26/27 python -m multi_car_racing_tpu_torch.train: 3 updates, an evaluation, "
+    phase("26/31 python -m multi_car_racing_tpu_torch.train: 3 updates, an evaluation, "
           "a checkpoint, then --resume")
     t = time.perf_counter()
     facade["train_cli"] = train_cli_phase()
@@ -2308,9 +2684,39 @@ def main() -> int:
     facade["seconds"] = seconds
     phase(f"phases 23-26 took {time.perf_counter() - t23:.1f} s: " + ", ".join(
         f"phase {k} {v:.1f} s" for k, v in seconds.items()))
-    phase(f"27/27 report: every phase passed in {time.perf_counter() - start:.1f} s")
+    phase(f"27/31 tracks generated on the card: a checked pool of {GEN_POOL}, device_reset at "
+          f"E={E}, N=2, and one attempt on the card against the CPU on the same uniforms")
+    t = time.perf_counter()
+    generation = generation_phase(smi, dev)
+    seconds = {"27": time.perf_counter() - t}
+    phase(f"28/31 VectorMultiCarRacing on the card: E={E}, N=2, obs=pixels, time limit "
+          f"{VEC_LIMIT}, {VEC_STEPS} steps")
+    t = time.perf_counter()
+    vector = {"pixels": vector_phase("pixels", 2, smi, dev)}
+    seconds["28"] = time.perf_counter() - t
+    phase(f"29/31 VectorMultiCarRacing on the card: obs=state at N=1 (K1), obs=none at N=2")
+    t = time.perf_counter()
+    vector["state"] = vector_phase("state", 1, smi, dev)
+    vector["none"] = vector_phase("none", 2, smi, dev)
+    seconds["29"] = time.perf_counter() - t
+    phase(f"30/31 K2 and K3 past shared memory: the scratch layout at N={NARROW_NS} and "
+          f"N={WIDE_NS}, E={WIDE_E}, against the plain versions")
+    t = time.perf_counter()
+    wide = wide_contact_phase(dev, smi)
+    seconds["30"] = time.perf_counter() - t
+    phase("phases 27-30 took " + ", ".join(f"phase {k} {v:.1f} s" for k, v in seconds.items()))
+    for k, name in ((k2, "k2"), (k3, "k3")):
+        k["past_shared_memory"] = {
+            lab: {"ms": r[name]["ms"], "bound_ms": r[name]["bound_ms"],
+                  "bound_by": r[name]["bound_by"], "scratch_slots": r["scratch_slots"][name],
+                  "warp_bytes": r["warp_bytes"], "max_err_over_bar": max(
+                      v for key, v in r["max_err_over_bar"].items() if key.startswith(name))}
+            for lab, r in wide.items() if "k2" in r}
+    phase(f"31/31 report: every phase passed in {time.perf_counter() - start:.1f} s")
     print(json.dumps({"learner": learner}), flush=True)
     print(json.dumps({"facade": facade}), flush=True)
+    print(json.dumps({"generation": generation, "vector": vector,
+                      "past_shared_memory": wide}), flush=True)
     print(json.dumps({"kernels": [k1, k2, k3, k45, k6], "rollout": rollout,
                       "pixel_main_path": {k: v for k, v in px_run.items()},
                       "pixel_rollout": px_rollout}), flush=True)

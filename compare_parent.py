@@ -53,8 +53,11 @@ The K2/K3 inputs (E = 4096, N = 2 unless named): chip_smoke.py's phase 6
 state; the N = 2 main path's last; all-far (phase 6's cars, car 1 of every
 env moved 500 m); the N = 2 spawn tick; all-near (the spawn tick, car 1
 pulled to 2.7 m of car 0); N = 4 at E = 1024 driven until 10% of envs are
-near; the N = 4 rear-end ram (E = 1). Kernel times are device time per
-launch: 50 launches captured in a CUDA graph (chip_smoke.graph_ms). Prints
+near; the N = 4 rear-end ram (E = 1); N = 6 and N = 8 at E = 64 driven
+until a quarter of the envs are near and a car-car contact happened
+(chip_smoke.wide_states; at N = 8 a warp carries 40 bodies, more than its
+lanes). Kernel times are device time per launch: 50 launches captured in
+a CUDA graph (chip_smoke.graph_ms). Prints
 one line per input and writes the whole report to
 ``multi_car_racing_tpu_torch/_build/compare/compare_<mode>.json``. Imports
 nothing of JAX.
@@ -91,16 +94,17 @@ VP, CI, CF = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
 # Each launch function's arguments, in this checkout and in its parent
-# (307134d), whose K3 took no live-env list and count. Only these two are
-# kept: a comparison with an older commit needs that commit's
-# compare_parent.py.
+# (db346be), whose K2 and K3 took no scratch buffer (pointer and slots)
+# before the stream. Only these two are kept: a comparison with an older
+# commit needs that commit's compare_parent.py.
 ARGTYPES = {
     "joints_island": [VP] * 5 + [CI] * 3 + [VP],
-    "contact_island": [VP] * 15 + [CI] * 7 + [VP],
-    "solve_island": [VP] * 17 + [CI] * 7 + [VP],
+    "contact_island": [VP] * 15 + [CI] * 7 + [VP, CI, VP],
+    "solve_island": [VP] * 17 + [CI] * 7 + [VP, CI, VP],
     "track_pass": [VP] * 20 + [CI] * 3 + [CF] * 6 + [VP],
 }
-PARENT_ARGTYPES = dict(ARGTYPES, solve_island=[VP] * 15 + [CI] * 7 + [VP])
+PARENT_ARGTYPES = dict(ARGTYPES, contact_island=[VP] * 15 + [CI] * 7 + [VP],
+                       solve_island=[VP] * 17 + [CI] * 7 + [VP])
 
 
 def build(tag: str, src_dir: str, name: str, argtypes: dict):
@@ -129,7 +133,9 @@ class Version:
         self.tag = tag
         self.k1, self.k2, self.k3, self.k45 = (built[n][0] for n in KERNELS)
         self.ptxas = {n: b[1] for n, b in built.items()}
-        self.lists = len(types["solve_island"]) == 25     # K3 takes the live-env list
+        self.lists = len(types["solve_island"]) >= 25     # K3 takes the live-env list
+        # K2 and K3 take a scratch buffer: pass none (the shared layout, N <= 9).
+        self.scratch = [0, 0] if len(types["contact_island"]) == 25 else []
         self.near_count = self.near_list = self.live_count = self.live_list = None
 
     def joints(self, fin, ls_in, vel: int = 180, pos: int = 60):
@@ -157,7 +163,8 @@ class Version:
                      ls_out.data_ptr(), ni.data_ptr(), ti.data_ptr(), ids.data_ptr(),
                      fw._params(dev).data_ptr(), ctab.data_ptr(), itab.data_ptr(),
                      self.near_list.data_ptr(), self.near_count.data_ptr(),
-                     envs, n, mm, 180, 60, 180, 60, torch.cuda.current_stream().cuda_stream)
+                     envs, n, mm, 180, 60, 180, 60, *self.scratch,
+                     torch.cuda.current_stream().cuda_stream)
         if rc:
             raise RuntimeError(f"{self.tag} contact_island launch failed ({rc})")
         return fout, ls_out, ni, ti, ids
@@ -188,7 +195,8 @@ class Version:
             lists = [self.live_list.data_ptr(), self.live_count.data_ptr()]
         rc = self.k3(fin.data_ptr(), ls_in.data_ptr(), *rows, fout.data_ptr(),
                      ls_out.data_ptr(), *out_imp, fw._params(dev).data_ptr(), *tabs, *lists,
-                     envs, n, mm, 180, 60, 180, 60, torch.cuda.current_stream().cuda_stream)
+                     envs, n, mm, 180, 60, 180, 60, *self.scratch,
+                     torch.cuda.current_stream().cuda_stream)
         if rc:
             raise RuntimeError(f"{self.tag} solve_island launch failed ({rc})")
         return (fout, ls_out) if ni is None else (fout, ls_out, ni, ti)
@@ -255,7 +263,9 @@ def inputs(dev) -> dict:
             "all-near": ((cs.move_car1(sp.cars, pull), sp.wheel_on_road, sp.contacts), 2),
             f"N=4, E={cs.N4_E}": (drive_until_near(4, cs.N4_E, dev), 4),
             "ram (N=4, E=1)": ((apply_controls(ram.cars, ram_act), ram.wheel_on_road,
-                                ram.contacts), 4)}
+                                ram.contacts), 4),
+            **{f"N={n}, E={cs.WIDE_E}": ((lambda st: (st.cars, st.wheel_on_road, st.contacts))(
+                cs.wide_states(n, cs.WIDE_E, dev)[2]), n) for n in cs.NARROW_NS}}
 
 
 def k1_inputs(dev, contact_inputs: dict) -> dict:
@@ -532,7 +542,7 @@ for n in (1, 2):
     out[f"n{n}_step_ms"] = [cs.main_path(cfg, acts, f"N={n}", smi)["step_ms"] for _ in range(3)]
 out["rollout_env_steps_per_s"] = cs.rollout_phase(smi, dev)["env_steps_per_s"]
 out["pixel_step_ms"] = cs.pixel_main_path(smi, dev)["step_ms"]
-pool = penv.make_track_pool(EnvConfig(num_agents=2), cs.POOL_SEEDS, device=dev)
+pool = penv.make_host_track_pool(EnvConfig(num_agents=2), cs.POOL_SEEDS, device=dev)
 out["pixel_ppo_env_steps_per_s"] = cs.pixel_rollout_phase(smi, dev, pool)["env_steps_per_s"]
 print("E2E " + json.dumps(out), flush=True)
 """

@@ -7,8 +7,11 @@ car-car contacts) on an NVIDIA card, through hand-written CUDA kernels: the
 physics island (``csrc/joints_island.cu`` at one car per env,
 ``csrc/contact_island.cu`` at two or more) and the track stage
 (``csrc/track_pass.cu``). It observes the envs as state vectors or as the
-reference's 96x96 pixels (one launch of ``csrc/paint_view.cu`` per frame),
-and resets finished envs from a pool of host tracks:
+reference's 96x96 pixels (one launch of ``csrc/paint_view.cu`` per frame).
+Tracks come from the host generator, bit-exact with the reference
+(``reset_batch``, ``make_host_track_pool``), or are generated on the card
+(``track/device.py``: ``device_reset``, ``make_track_pool_checked``), and
+finished envs reset from a pool of either kind:
 
     from multi_car_racing_tpu_torch import EnvConfig, env, obs
     cfg = EnvConfig(num_agents=2)
@@ -16,8 +19,10 @@ and resets finished envs from a pool of host tracks:
     state, reward, done = env.step(cfg, state, actions)            # (E, 2, 3)
     features = obs.state_observation(state)                         # (E, 2, 38)
     frames = obs.pixel_observation_batched(cfg, state)              # (E, 2, 96, 96, 3)
-    pool = env.make_track_pool(cfg, seeds=range(32))
-    state = env.reset_done_envs(cfg, state, pool, torch.Generator("cuda"))
+    g = torch.Generator("cuda").manual_seed(0)
+    state = env.device_reset(cfg, g, num_envs=4096)                # tracks made on the card
+    pool = env.make_track_pool_checked(cfg, g, pool_size=32)       # or make_host_track_pool
+    state = env.reset_done_envs(cfg, state, pool, g)
 
 The learner (``learner``: the actor-critic network, PPO and evaluation)
 trains and evaluates policies on those envs, and ``checkpoint`` saves and
@@ -48,13 +53,18 @@ episodes; ``train`` is the PPO command line, ``metrics`` its logger:
     env = mcr.monitor.Monitor(mcr.make("CarRacing-v0"), "/tmp/run1")
     # python -m multi_car_racing_tpu_torch.train --carracing-v0 --log run.jsonl
 
+``VectorMultiCarRacing`` is the batched facade: E envs with autoreset, numpy
+in and out, tracks generated on the card:
+
+    venv = mcr.VectorMultiCarRacing(4096, num_agents=2, obs="pixels")  # "state", "none"
+    obs = venv.reset()                                   # (4096, 2, 96, 96, 3)
+    obs, rewards, dones, info = venv.step(actions)       # (4096, 2, 3)
+
 Entry points run on CUDA unless the caller passes ``device="cpu"``, where
 every kernel is replaced by its plain PyTorch version. Kernels build with
 nvcc at first use; importing the package builds nothing.
 
-Not ported yet: the batched facade ``VectorMultiCarRacing`` and the
-on-device track generator it draws from, multi-GPU training, the demo and
-terminal tools.
+Not ported yet: multi-GPU training, the demo and terminal tools.
 """
 
 # ``train`` (the command line, ``python -m multi_car_racing_tpu_torch.train``)
@@ -63,12 +73,12 @@ terminal tools.
 from . import (checkpoint, config, convert, env, gym_api, learner, metrics, monitor, obs,
                render, window)
 from .config import EnvConfig
-from .gym_api import MultiCarRacing, TimeLimit, make
+from .gym_api import MultiCarRacing, TimeLimit, VectorMultiCarRacing, make
 
 __version__ = "0.1.0"
 __all__ = ["checkpoint", "config", "convert", "env", "gym_api", "learner", "metrics", "monitor",
            "obs", "render", "train", "window", "EnvConfig", "MultiCarRacing", "TimeLimit",
-           "make"]
+           "VectorMultiCarRacing", "make"]
 
 
 def __getattr__(name: str):

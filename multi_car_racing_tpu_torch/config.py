@@ -131,19 +131,20 @@ class EnvConfig:
     reference constructor kwargs that shape the physics, the episode and the
     pixel observation (mcr:131-133: the backwards flag, the camera's height
     ratio and ego colours, read by ``render.pixels``; ``verbose``, read by
-    the Gym facade's reset), track padding, the solver iteration counts, and
-    the two render-only switches: ``track_skid`` (the skid trails that
+    the Gym facade's reset), track padding, the bounds of the on-device
+    track generator (``max_track_points``, the walk's steps, and
+    ``max_track_retries``, its resampling rounds; read by
+    ``env.device_reset`` and the track pools), the solver iteration counts,
+    and the two render-only switches: ``track_skid`` (the skid trails that
     ``render.raster.render_observation`` draws for ``rgb_array``) and
     ``exact_hull_touch`` (the full hull-fixture SAT for the tiles' touched
     flag).
 
-    The JAX fields that belong to later parts of the port are not fields
-    here, so setting one raises ``TypeError``: ``obs_type`` and
-    ``auto_reset`` (the batched facade ``VectorMultiCarRacing``, which waits
-    for the on-device track generator), ``max_track_points`` and
-    ``max_track_retries`` (the bounds of that generator's walk and
-    resampling), and ``dtype`` (float32 only, until a mixed-precision
-    physics is ported).
+    The JAX fields that no module reads are not fields here, so setting one
+    raises ``TypeError``: ``obs_type`` and ``auto_reset`` (the JAX package
+    only validates ``obs_type``; the batched facade takes its observation
+    mode as an argument and autoresets on its own), and ``dtype`` (float32
+    only, until a mixed-precision physics is ported).
     """
 
     num_agents: int = 2
@@ -158,6 +159,8 @@ class EnvConfig:
     max_tiles: int = 384              # pad track to this many tiles (measured max 355)
     exact_hull_touch: bool = False    # full hull SAT for the render 'touched' flag
     track_skid: bool = False          # maintain skid-particle trails (render-only)
+    max_track_points: int = 2500      # walk iteration bound (mcr:211)
+    max_track_retries: int = 12       # rejection-resampling bound (reference retries forever)
     velocity_iters: int = VELOCITY_ITERS
     position_iters: int = POSITION_ITERS
     max_episode_steps: int = MAX_EPISODE_STEPS   # time limit of reset_done_envs

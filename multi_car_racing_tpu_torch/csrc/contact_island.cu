@@ -30,8 +30,12 @@
 //    48 manifold rows are spread over the 32 lanes for Collide, and the
 //    solve walks only the live rows and each body's live routing entries,
 //    with per-body sums in the routing table's fixed order (bit-identical
-//    launches). Its grid covers E warps; a warp past the list's count
-//    returns at once. The count is never read on the host.
+//    launches). Up to N = 9 each warp's arrays sit in shared memory and
+//    the grid covers E warps; a warp past the list's count returns at once.
+//    Above N = 9 they do not fit a block's shared memory: the same arrays
+//    sit in a global scratch slot per resident warp (contact_rows.cuh), one
+//    warp a block, each warp looping over the list with the grid's stride.
+//    The count is never read on the host.
 //
 // What bounds it. The joints chain is K1's (~5.4e4 fp32 ops per car). A near
 // env adds the SAT of every row (~580 ops), the clipping of each live row
@@ -326,30 +330,20 @@ far_pass_kernel(const float* __restrict__ fin, const int* __restrict__ lsin,
 // The near pass: one warp per env of the near list.
 // ---------------------------------------------------------------------------
 
-__global__ void __launch_bounds__(32 * kWarpsPerBlock)
-near_pass_kernel(const float* __restrict__ fin, const int* __restrict__ lsin,
-                 const float* __restrict__ pni, const float* __restrict__ pti,
-                 const int* __restrict__ pids, float* __restrict__ fout,
-                 int* __restrict__ lsout, float* __restrict__ nio,
-                 float* __restrict__ tio, int* __restrict__ idso,
-                 const float* __restrict__ prm, const float* __restrict__ ctab,
-                 const int* __restrict__ itab, const int* __restrict__ near_list,
-                 const int* __restrict__ near_count, int E, int N, int MM,
-                 int vel_iters, int pos_iters, int k_vel, int k_pos,
-                 int warps_per_block) {
-  extern __shared__ float smem[];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int w = blockIdx.x * warps_per_block + warp;
-  if (w >= *near_count) return;             // whole warps only
-  const int e = near_list[w];
+// Near env e on this warp, whose arrays are at S.
+__device__ __forceinline__ void near_env(
+    int e, int lane, float* S, const float* __restrict__ fin, const int* __restrict__ lsin,
+    const float* __restrict__ pni, const float* __restrict__ pti,
+    const int* __restrict__ pids, float* __restrict__ fout, int* __restrict__ lsout,
+    float* __restrict__ nio, float* __restrict__ tio, int* __restrict__ idso,
+    const float* __restrict__ prm, const float* __restrict__ ctab,
+    const int* __restrict__ itab, int E, int N, int MM, int vel_iters, int pos_iters,
+    int k_vel, int k_pos) {
   const int NB = 5 * N;
   const size_t sn = static_cast<size_t>(E) * N;
   const size_t ci = static_cast<size_t>(e) * N + lane;   // this lane's car
   const bool has_car = lane < N;
   const int b0 = lane * 5;                 // the car's hull slot
-
-  float* S = smem + static_cast<size_t>(warp) * warp_smem_floats(N, MM);
   const Shared sh{S, NB, MM};
 
   float p[N_PARAMS];
@@ -396,23 +390,80 @@ near_pass_kernel(const float* __restrict__ fin, const int* __restrict__ lsin,
   store_impulses(sh, nio, tio, row0, MM, lane);
 }
 
+// kScratch false: warp w of the grid takes list entry w, its arrays in the
+// block's dynamic shared memory. kScratch true (one warp a block, for N whose
+// arrays do not fit a block's shared memory): warp w's arrays are slot w of
+// `scratch`, and it takes entries w, w + the grid's warps, ...
+template <bool kScratch>
+__global__ void __launch_bounds__(32 * kWarpsPerBlock)
+near_pass_kernel(const float* __restrict__ fin, const int* __restrict__ lsin,
+                 const float* __restrict__ pni, const float* __restrict__ pti,
+                 const int* __restrict__ pids, float* __restrict__ fout,
+                 int* __restrict__ lsout, float* __restrict__ nio,
+                 float* __restrict__ tio, int* __restrict__ idso,
+                 const float* __restrict__ prm, const float* __restrict__ ctab,
+                 const int* __restrict__ itab, const int* __restrict__ near_list,
+                 const int* __restrict__ near_count, int E, int N, int MM,
+                 int vel_iters, int pos_iters, int k_vel, int k_pos,
+                 int warps_per_block, float* scratch) {
+  extern __shared__ float smem[];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int w = blockIdx.x * warps_per_block + warp;
+  if constexpr (!kScratch) {
+    if (w >= *near_count) return;           // whole warps only
+    near_env(near_list[w], lane, smem + static_cast<size_t>(warp) * warp_smem_floats(N, MM),
+             fin, lsin, pni, pti, pids, fout, lsout, nio, tio, idso, prm, ctab, itab, E, N,
+             MM, vel_iters, pos_iters, k_vel, k_pos);
+  } else {
+    float* S = scratch + static_cast<size_t>(w) * warp_smem_floats(N, MM);
+    const int count = *near_count, stride = gridDim.x * warps_per_block;
+    for (int i = w; i < count; i += stride) {  // the same count on every lane
+      near_env(near_list[i], lane, S, fin, lsin, pni, pti, pids, fout, lsout, nio, tio,
+               idso, prm, ctab, itab, E, N, MM, vel_iters, pos_iters, k_vel, k_pos);
+      __syncwarp();                         // the slot's last reads before the next env
+    }
+  }
+}
+
 }  // namespace
 
 extern "C" {
 
+// The scratch the launch needs for E envs of N cars (MM rows each): 0 when
+// one warp's arrays fit a block's shared memory on the current device (the
+// launch takes no scratch); else the slots, the near pass's resident warps
+// (at most E), each of contact_island_warp_floats(N, MM) floats. Negative: a
+// CUDA error code.
+int contact_island_scratch_warps(int E, int N, int MM) {
+  if (warp_fits_shared(N, MM)) return 0;
+  return resident_warps(near_pass_kernel<true>, E);
+}
+
+long long contact_island_warp_floats(int N, int MM) {
+  return static_cast<long long>(warp_smem_floats(N, MM));
+}
+
 // Launches the island on `stream` for E envs of N >= 2 cars (MM manifold rows
 // each): the far pass, then the near pass over the envs it listed.
 // near_list (E ints) and near_count (1 int) are device buffers; the count is
-// zeroed here and holds the number of near envs after the launch. Returns
-// the CUDA error after the launches (0 on success); does not synchronise.
+// zeroed here and holds the number of near envs after the launch. With
+// scratch_warps = 0 the near pass keeps each warp's arrays in shared memory
+// (refused when they do not fit a block's); with scratch_warps > 0, in
+// `scratch`, scratch_warps slots of contact_island_warp_floats(N, MM) floats.
+// Returns the CUDA error after the launches (0 on success); does not
+// synchronise.
 int contact_island_launch(const float* fin, const int* lsin, const float* pni,
                           const float* pti, const int* pids, float* fout, int* lsout,
                           float* nio, float* tio, int* idso, const float* prm,
                           const float* ctab, const int* itab, int* near_list,
                           int* near_count, int E, int N, int MM, int vel_iters,
-                          int pos_iters, int k_vel, int k_pos, void* stream) {
+                          int pos_iters, int k_vel, int k_pos, float* scratch,
+                          int scratch_warps, void* stream) {
   if (E <= 0) return 0;
-  if (N < 2 || N > 32 || MM != N * (N - 1) / 2 * 48) {
+  if (N < 2 || N > 32 || MM != N * (N - 1) / 2 * 48 || scratch_warps < 0
+      || (scratch_warps > 0) != (scratch != nullptr)
+      || (scratch_warps == 0 && !warp_fits_shared(N, MM))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -425,18 +476,25 @@ int contact_island_launch(const float* fin, const int* lsin, const float* pni,
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
 
+  if (scratch_warps > 0) {
+    near_pass_kernel<true><<<scratch_warps, 32, 0, st>>>(
+        fin, lsin, pni, pti, pids, fout, lsout, nio, tio, idso, prm, ctab, itab, near_list,
+        near_count, E, N, MM, vel_iters, pos_iters, k_vel, k_pos, 1, scratch);
+    return static_cast<int>(cudaGetLastError());
+  }
   const size_t per_warp = warp_smem_floats(N, MM) * sizeof(float);
   const int warps = fit_warps_per_block(per_warp, kWarpsPerBlock);
   const size_t smem = warps * per_warp;
   if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(near_pass_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+    err = cudaFuncSetAttribute(near_pass_kernel<false>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   const int blocks = (E + warps - 1) / warps;
-  near_pass_kernel<<<blocks, 32 * warps, smem, st>>>(
+  near_pass_kernel<false><<<blocks, 32 * warps, smem, st>>>(
       fin, lsin, pni, pti, pids, fout, lsout, nio, tio, idso, prm, ctab, itab, near_list,
-      near_count, E, N, MM, vel_iters, pos_iters, k_vel, k_pos, warps);
+      near_count, E, N, MM, vel_iters, pos_iters, k_vel, k_pos, warps, nullptr);
   return static_cast<int>(cudaGetLastError());
 }
 

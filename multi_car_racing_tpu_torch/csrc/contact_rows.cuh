@@ -12,8 +12,20 @@
 // One warp per env. Lanes 0..N-1 each carry one car (car_chain.cuh). Body
 // velocities and positions (5N slots, car*5 + j, j = 0 hull, 1..4 wheels)
 // and the rows' solver constants (row r of the env's MM = N(N-1)/2 * 48
-// manifold rows at index r) live in shared memory; the car lanes write their
-// bodies there before each contact sub-pass and read them back after.
+// manifold rows at index r) live in the warp's arrays (Shared); the car
+// lanes write their bodies there before each contact sub-pass and read them
+// back after.
+//
+// Where the warp's arrays live. In shared memory while one warp's arrays fit
+// the opt-in shared memory of a block (smem_optin_bytes: 232,448 bytes on an
+// H100), that is up to N = 9 (196,252 bytes; N = 10 needs 244,936). Above
+// that the same layout sits in a slot of a global scratch buffer that the
+// wrapper allocates: one slot per resident warp of the kernel
+// (scratch_warps), each warp looping over the envs of its list with the
+// grid's stride, so the scratch grows with the card, not with E (one slot is
+// ~2.7 MB at N = 32). The arithmetic and its order are the same on both, so
+// the two layouts give the same bits; __syncwarp orders global memory among
+// the warp's lanes as it does shared memory.
 //
 // Live-row compaction. A row's live bits are fixed for the whole solve, so
 // once per step (build_live_lists) the warp lists its live rows in ascending
@@ -575,6 +587,41 @@ inline int fit_warps_per_block(size_t per_warp_bytes, int most) {
   int warps = most;
   while (warps > 1 && warps * per_warp_bytes > 48 * 1024) --warps;
   return warps;
+}
+
+// The shared memory a block may opt in to on the current device
+// (cudaDevAttrMaxSharedMemoryPerBlockOptin); 0 when the query fails.
+inline size_t smem_optin_bytes() {
+  int dev = 0, bytes = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess
+      || cudaDeviceGetAttribute(&bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev)
+             != cudaSuccess) {
+    return 0;
+  }
+  return static_cast<size_t>(bytes);
+}
+
+// Whether one warp's arrays at N cars and MM rows fit a block's shared memory
+// on the current device.
+inline bool warp_fits_shared(int N, int MM) {
+  return warp_smem_floats(N, MM) * sizeof(float) <= smem_optin_bytes();
+}
+
+// The scratch slots of a one-warp-a-block kernel whose warps keep their
+// arrays in global memory: its resident warps on the current device (blocks
+// per SM at no dynamic shared memory, times the SMs), at most `envs`, at least
+// 1. Negative: a CUDA error code.
+template <class Kernel>
+inline int resident_warps(Kernel kernel, int envs) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, 32, 0);
+  }
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  const long long warps = static_cast<long long>(per_sm) * sms;
+  return static_cast<int>(warps < envs ? (warps > 0 ? warps : 1) : (envs > 0 ? envs : 1));
 }
 
 }  // namespace

@@ -32,9 +32,13 @@
 //    then the car's share of the env's zero impulses (rows n, n + N, ...);
 //    a car of a live env returns. The E blocks after those take the list's
 //    entries, block w entry w, and return at once past the count: one warp
-//    per live env, as contact_rows.cuh sets out. Lanes 0..N-1 carry the
-//    cars' chains in registers, the MM rows are spread over the lanes,
-//    bodies and row constants sit in shared memory, the solve walks only
+//    per live env, as contact_rows.cuh sets out. Above N = 9, where a
+//    warp's arrays do not fit a block's shared memory, as many blocks as
+//    the solve pass keeps resident follow the dead ones instead, each with
+//    a slot of a global scratch buffer, looping over the list. Lanes
+//    0..N-1 carry the cars' chains in registers, the MM rows are spread
+//    over the lanes, bodies and row constants sit in the warp's arrays
+//    (shared memory, or the scratch slot), the solve walks only
 //    the live rows and each body's live routing entries, and every
 //    per-body impulse sum runs in the routing table's fixed order, so two
 //    launches give the same bits. Each row is read once from the bundle's
@@ -210,7 +214,10 @@ __device__ __forceinline__ void solve_live_env(
 
 // Blocks 0..dead_blocks-1: car blockIdx.x * 32 + lane, if its env is dead;
 // the blocks after: list entry blockIdx.x - dead_blocks (a live env) on the
-// warp, or nothing past the count.
+// warp, or nothing past the count. kScratch (for N whose arrays do not fit a
+// block's shared memory): live block w's arrays are slot w of `scratch`, and
+// it takes entries w, w + live_blocks, ...
+template <bool kScratch>
 __global__ void __launch_bounds__(32)
 solve_pass_kernel(const float* __restrict__ fin, const int* __restrict__ lsin,
                   const float* __restrict__ normal, const float* __restrict__ point,
@@ -221,16 +228,28 @@ solve_pass_kernel(const float* __restrict__ fin, const int* __restrict__ lsin,
                   const float* __restrict__ prm, const float* __restrict__ ctab,
                   const int* __restrict__ itab, const int* __restrict__ live_list,
                   const int* __restrict__ live_count, int E, int N, int MM,
-                  int vel_iters, int pos_iters, int k_vel, int k_pos, int dead_blocks) {
+                  int vel_iters, int pos_iters, int k_vel, int k_pos, int dead_blocks,
+                  float* scratch) {
   extern __shared__ float smem[];
   const int lane = threadIdx.x;
   const size_t sn = static_cast<size_t>(E) * N;
   const int w = static_cast<int>(blockIdx.x) - dead_blocks;
   if (w >= 0) {
-    if (w >= *live_count) return;           // whole warps only
-    solve_live_env(live_list[w], lane, smem, sn, fin, lsin, normal, point, sep, ok, ni_in,
-                   ti_in, fout, lsout, nio, tio, prm, ctab, itab, N, MM, vel_iters,
-                   pos_iters, k_vel, k_pos);
+    if constexpr (!kScratch) {
+      if (w >= *live_count) return;           // whole warps only
+      solve_live_env(live_list[w], lane, smem, sn, fin, lsin, normal, point, sep, ok, ni_in,
+                     ti_in, fout, lsout, nio, tio, prm, ctab, itab, N, MM, vel_iters,
+                     pos_iters, k_vel, k_pos);
+    } else {
+      float* S = scratch + static_cast<size_t>(w) * warp_smem_floats(N, MM);
+      const int count = *live_count, stride = static_cast<int>(gridDim.x) - dead_blocks;
+      for (int i = w; i < count; i += stride) {  // the same count on every lane
+        solve_live_env(live_list[i], lane, S, sn, fin, lsin, normal, point, sep, ok, ni_in,
+                       ti_in, fout, lsout, nio, tio, prm, ctab, itab, N, MM, vel_iters,
+                       pos_iters, k_vel, k_pos);
+        __syncwarp();                       // the slot's last reads before the next env
+      }
+    }
     return;
   }
   const int i = blockIdx.x * 32 + lane;
@@ -245,12 +264,29 @@ solve_pass_kernel(const float* __restrict__ fin, const int* __restrict__ lsin,
 
 extern "C" {
 
+// The scratch the launch needs for E envs of N cars with MM bundle rows each:
+// 0 when one warp's arrays fit a block's shared memory on the current device
+// (or MM = 0: no bundle); else the slots, the solve pass's resident warps (at
+// most E), each of solve_island_warp_floats(N, MM) floats. Negative: a CUDA
+// error code.
+int solve_island_scratch_warps(int E, int N, int MM) {
+  if (MM == 0 || warp_fits_shared(N, MM)) return 0;
+  return resident_warps(solve_pass_kernel<true>, E);
+}
+
+long long solve_island_warp_floats(int N, int MM) {
+  return static_cast<long long>(warp_smem_floats(N, MM));
+}
+
 // Launches the solve on `stream` for E envs of N cars, with MM = N(N-1)/2 *
 // 48 bundle rows each (N >= 2), or MM = 0 and null row pointers for the
 // joints-only island (any N): the list pass (with a bundle), then the solve
 // pass. point_ok must start on a 16-byte boundary. live_list (E ints) and
 // live_count (1 int) are device buffers; the count is zeroed here and holds
-// the number of live envs after the launch.
+// the number of live envs after the launch. With scratch_warps = 0 a live
+// warp keeps its arrays in shared memory (refused when they do not fit a
+// block's); with scratch_warps > 0 (a bundle only), in `scratch`,
+// scratch_warps slots of solve_island_warp_floats(N, MM) floats.
 // Returns the CUDA error after the launches (0 on success); does not
 // synchronise.
 int solve_island_launch(const float* fin, const int* lsin, const float* normal,
@@ -259,8 +295,11 @@ int solve_island_launch(const float* fin, const int* lsin, const float* normal,
                         float* nio, float* tio, const float* prm, const float* ctab,
                         const int* itab, int* live_list, int* live_count, int E, int N,
                         int MM, int vel_iters, int pos_iters, int k_vel, int k_pos,
-                        void* stream) {
-  if (E < 0 || N < 1 || N > 32 || (MM != 0 && (N < 2 || MM != N * (N - 1) / 2 * 48))) {
+                        float* scratch, int scratch_warps, void* stream) {
+  if (E < 0 || N < 1 || N > 32 || (MM != 0 && (N < 2 || MM != N * (N - 1) / 2 * 48))
+      || scratch_warps < 0 || (scratch_warps > 0) != (scratch != nullptr)
+      || (scratch_warps > 0 && MM == 0)
+      || (MM != 0 && scratch_warps == 0 && !warp_fits_shared(N, MM))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (MM != 0 && (reinterpret_cast<size_t>(ok) & 15u) != 0u) {
@@ -276,17 +315,25 @@ int solve_island_launch(const float* fin, const int* lsin, const float* normal,
         ok, live_list, live_count, E, MM);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
-    if (smem > 48 * 1024) {
-      err = cudaFuncSetAttribute(solve_pass_kernel,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 static_cast<int>(smem));
-      if (err != cudaSuccess) return static_cast<int>(err);
-    }
+  }
+  if (scratch_warps > 0) {
+    solve_pass_kernel<true><<<dead_blocks + scratch_warps, 32, 0, st>>>(
+        fin, lsin, normal, point, sep, ok, ni_in, ti_in, fout, lsout, nio, tio, prm, ctab,
+        itab, live_list, live_count, E, N, MM, vel_iters, pos_iters, k_vel, k_pos,
+        dead_blocks, scratch);
+    return static_cast<int>(cudaGetLastError());
+  }
+  if (MM != 0 && smem > 48 * 1024) {
+    err = cudaFuncSetAttribute(solve_pass_kernel<false>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
   }
   const int blocks = dead_blocks + (MM != 0 ? E : 0);
-  solve_pass_kernel<<<blocks, 32, MM != 0 ? smem : 0, st>>>(
+  solve_pass_kernel<false><<<blocks, 32, MM != 0 ? smem : 0, st>>>(
       fin, lsin, normal, point, sep, ok, ni_in, ti_in, fout, lsout, nio, tio, prm, ctab, itab,
-      live_list, live_count, E, N, MM, vel_iters, pos_iters, k_vel, k_pos, dead_blocks);
+      live_list, live_count, E, N, MM, vel_iters, pos_iters, k_vel, k_pos, dead_blocks,
+      nullptr);
   return static_cast<int>(cudaGetLastError());
 }
 

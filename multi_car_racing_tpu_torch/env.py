@@ -18,9 +18,13 @@ Step order preserves the reference's (mcr:410-509 + Box2D internals):
   4. post-step analysis: -0.1 step cost, backward/on-grass flags,
      all-tiles-visited / off-playfield termination (mcr:433-508)
 
-Episode management for batched rollouts: ``make_track_pool`` stacks host
-tracks, ``reset_done_envs`` puts fresh episodes drawn from the pool into the
-envs that are done or past ``cfg.max_episode_steps``.
+Episodes on the device (JAX ``env.py:575-645``): ``device_reset`` generates
+each env's track on the tracks' device (``track/device.py``) and draws its
+episode; ``make_track_pool`` / ``make_track_pool_checked`` stack such tracks
+for autoreset, and ``reset_done_envs`` puts fresh episodes drawn from a pool
+into the envs that are done or past ``cfg.max_episode_steps``. The host path
+(``host_reset``, ``reset_batch``, ``make_host_track_pool``) keeps the
+reference's bit-exact MT19937 tracks for parity work.
 
 Two render-only switches (off by default, on in the Gym facade for the
 first): ``cfg.track_skid`` advances the skid-trail ring
@@ -52,6 +56,7 @@ from .physics.track_engine import track_pass
 from .physics.state import CarState, apply_controls, create_cars
 from .render import particles
 from .render.particles import SkidState
+from .track import device as track_device
 from .track import host as track_host
 from .track.common import Track, pack_track_arrays, track_from_arrays
 from .util import resolve_device, tree_map
@@ -323,20 +328,16 @@ def reset_batch(cfg: C.EnvConfig, seeds: Sequence[int], num_envs: int,
     return tree_map(lambda x: x.index_select(0, idx), state)
 
 
-def make_track_pool(cfg: C.EnvConfig, seeds: Sequence[int], device=None) -> Track:
-    """A pool of ``len(seeds)`` tracks stacked on ``device`` (default CUDA),
-    for autoreset: ``reset_done_envs`` draws each fresh episode's track from
-    it instead of generating one.
-
-    The tracks come from the bit-exact host generator (``track/host.py`` ->
-    ``pack_track_arrays`` -> ``track_from_arrays``), one per seed. This
-    stands in for the JAX package's on-device pool (``make_track_pool``,
-    threefry track generation on the device) until that generator is
-    ported."""
+def make_host_track_pool(cfg: C.EnvConfig, seeds: Sequence[int], device=None) -> Track:
+    """A pool of ``len(seeds)`` host tracks stacked on ``device`` (default
+    CUDA), one per seed, from the bit-exact host generator (``track/host.py``
+    -> ``pack_track_arrays`` -> ``track_from_arrays``): for autoreset
+    (``reset_done_envs``) where parity work wants the reference's tracks.
+    ``make_track_pool`` draws a pool on the device instead."""
     dev = resolve_device(device)
     seeds = list(seeds)
     if not seeds:
-        raise ValueError("make_track_pool needs at least one seed")
+        raise ValueError("make_host_track_pool needs at least one seed")
     arrays = []
     for seed in seeds:
         pts, border, _ = track_host.generate_track(seeding.np_random(seed)[0])
@@ -344,25 +345,81 @@ def make_track_pool(cfg: C.EnvConfig, seeds: Sequence[int], device=None) -> Trac
     return track_from_arrays(arrays, dev)
 
 
-def draw_episodes(cfg: C.EnvConfig, num_envs: int, pool_size: int,
-                  generator: torch.Generator):
-    """Draws, from ``generator`` and on its device, each env's next episode:
-    (pool index (E,) int64, uniform over the pool; car order (E, N) int32, a
-    permutation; direction_cw (E,) bool, a fair coin when
-    ``cfg.use_random_direction``, else ``cfg.direction``).
-
-    The same distributions as the JAX package's ``reset_done_envs`` draws
-    (``track/device.py::episode_params``), not the same numbers: JAX draws
-    with threefry."""
+def draw_episode_params(cfg: C.EnvConfig, num_envs: int, generator: torch.Generator):
+    """Each env's episode draws, from ``generator`` and on its device: car
+    order (E, N) int32, a permutation, and direction_cw (E,) bool, a fair
+    coin when ``cfg.use_random_direction``, else ``cfg.direction``. The same
+    distributions as the JAX package's ``track/device.py::episode_params``,
+    not the same numbers: JAX draws with threefry."""
     dev = generator.device
-    idx = torch.randint(0, pool_size, (num_envs,), generator=generator, device=dev)
     keys = torch.rand((num_envs, cfg.num_agents), generator=generator, device=dev)
     orders = torch.argsort(keys, dim=1).to(torch.int32)
     if cfg.use_random_direction:
         dirs = torch.rand((num_envs,), generator=generator, device=dev) < 0.5
     else:
         dirs = torch.full((num_envs,), cfg.direction == "CW", device=dev)
-    return idx, orders, dirs
+    return orders, dirs
+
+
+def draw_episodes(cfg: C.EnvConfig, num_envs: int, pool_size: int,
+                  generator: torch.Generator):
+    """Draws, from ``generator`` and on its device, each env's next episode:
+    (pool index (E,) int64, uniform over the pool; then car order and
+    direction, as ``draw_episode_params``): the draws of the JAX package's
+    ``reset_done_envs``."""
+    dev = generator.device
+    idx = torch.randint(0, pool_size, (num_envs,), generator=generator, device=dev)
+    return (idx, *draw_episode_params(cfg, num_envs, generator))
+
+
+def device_reset(cfg: C.EnvConfig, generator: torch.Generator, num_envs: int) -> EnvState:
+    """Reset ``num_envs`` envs on the generator's device: each env's track
+    generated there (``track_device.generate_tracks``, bounded by
+    ``cfg.max_track_points`` and ``cfg.max_track_retries``), its episode
+    drawn (``draw_episode_params``), then the spawn tick.
+
+    An env whose every bounded retry failed (~0.06 per attempt; the
+    reference retries forever, mcr:359-364) is marked done with ``steps =
+    cfg.max_episode_steps``, as in the JAX package: it never contributes
+    transitions, and the next ``reset_done_envs`` replaces it from a pool."""
+    track, ok = track_device.generate_tracks(generator, num_envs, cfg.max_tiles,
+                                             cfg.max_track_points, cfg.max_track_retries)
+    orders, dirs = draw_episode_params(cfg, num_envs, generator)
+    state = reset_from_parts(cfg, track, orders, dirs)
+    return state.replace(done=state.done | ~ok,
+                         steps=torch.where(ok, state.steps,
+                                           torch.full_like(state.steps, cfg.max_episode_steps)))
+
+
+def make_track_pool(cfg: C.EnvConfig, generator: torch.Generator, pool_size: int):
+    """A pool of ``pool_size`` tracks generated on the generator's device,
+    for autoreset (``reset_done_envs`` draws each fresh episode's track from
+    it instead of generating one). Returns (Track, ok (pool_size,) bool);
+    an entry whose bounded retries all failed has ``ok`` False."""
+    return track_device.generate_tracks(generator, pool_size, cfg.max_tiles,
+                                        cfg.max_track_points, cfg.max_track_retries)
+
+
+def make_track_pool_checked(cfg: C.EnvConfig, generator: torch.Generator, pool_size: int,
+                            max_rounds: int = 8) -> Track:
+    """``make_track_pool`` that re-draws every entry whose bounded generation
+    failed, and raises after ``max_rounds`` re-draws instead of ever
+    returning a degenerate track. Reads the ok flags on the host once per
+    round: for init paths."""
+    tracks, ok = make_track_pool(cfg, generator, pool_size)
+    for _ in range(max_rounds):
+        failed = (~ok).nonzero().flatten()
+        if failed.numel() == 0:
+            return tracks
+        fresh, fresh_ok = make_track_pool(cfg, generator, failed.numel())
+        tracks = tree_map(lambda old, new: old.index_copy(0, failed, new), tracks, fresh)
+        ok = ok.index_copy(0, failed, fresh_ok)
+    if not bool(ok.all()):
+        raise RuntimeError(
+            f"track pool: {int((~ok).sum())}/{pool_size} entries still failed generation "
+            f"after {max_rounds} re-draw rounds (cfg.max_track_retries={cfg.max_track_retries})"
+        )
+    return tracks
 
 
 def episode_over(cfg: C.EnvConfig, state: EnvState) -> torch.Tensor:

@@ -28,8 +28,13 @@ API-parity notes (the JAX package's, kept):
   (``render.raster.render_observation``). For video capture, wrap the env
   in ``monitor.Monitor`` (the gym Monitor equivalent, mcr:714-717).
 
-Not ported here: ``VectorMultiCarRacing`` (the JAX batched facade, whose
-tracks come from the on-device generator), which waits for that generator.
+``VectorMultiCarRacing`` is the batched facade, the throughput entry point:
+E lockstep envs with autoreset, their tracks generated on the card
+(``env.device_reset``, ``env.make_track_pool_checked``):
+
+    venv = multi_car_racing_tpu_torch.VectorMultiCarRacing(4096, num_agents=2, obs="pixels")
+    obs = venv.reset()                                # (E, N, 96, 96, 3) uint8
+    obs, rewards, dones, info = venv.step(actions)    # (E, N, 3) -> (E, N), (E,)
 """
 
 from __future__ import annotations
@@ -257,6 +262,104 @@ class TimeLimit:
         return obs, r, done, info
 
 
+class VectorMultiCarRacing:
+    """Batched numpy facade: E lockstep envs on ``device`` (default CUDA;
+    ``device="cpu"`` runs the plain PyTorch versions of the kernels). The
+    reference is strictly single-env; this is the throughput entry point.
+
+    - ``reset()`` -> obs; ``step(actions (E, N, 3))`` -> (obs, rewards
+      (E, N), dones (E,), info). Done or time-limited envs autoreset at the
+      START of the next step (the returned obs and reward of a finishing
+      step are the terminal ones), from a pool of ``pool_size`` tracks.
+    - Tracks and episode draws come from the on-device generator
+      (``env.make_track_pool_checked`` once, then ``env.device_reset`` at
+      each ``reset()``), seeded by ``seed``: the reference's distributions,
+      not its MT19937 streams (the single-env ``MultiCarRacing`` facade
+      keeps those).
+    - obs="pixels" paints (E, N, 96, 96, 3) uint8 through
+      ``obs.pixel_observation_batched`` (K6 on the card); obs="state"
+      returns ``obs.state_observation`` (E, N, 38); obs="none" returns None
+      (physics only).
+    """
+
+    metadata = metadata
+
+    def __init__(
+        self,
+        num_envs: int,
+        num_agents: int = 2,
+        obs: str = "pixels",
+        seed: int = 0,
+        pool_size: int = 32,
+        max_episode_steps: int = C.MAX_EPISODE_STEPS,
+        device: str | None = None,
+        **env_kwargs,
+    ):
+        if obs not in ("pixels", "state", "none"):
+            raise ValueError(f"obs must be 'pixels', 'state' or 'none', got {obs!r}")
+        self.num_envs = num_envs
+        self.num_agents = num_agents
+        self.obs_type = obs
+        self.device = resolve_device(device)
+        self.cfg = C.EnvConfig(num_agents=num_agents, max_episode_steps=max_episode_steps,
+                               **env_kwargs)
+        self._generator = torch.Generator(device=self.device).manual_seed(seed)
+        self._pool = None
+        self._state = None
+        self._pool_size = pool_size
+
+        n, E = num_agents, num_envs
+        self.action_space = Box(
+            np.tile([-1.0, 0.0, 0.0], (E, n, 1)),
+            np.tile([1.0, 1.0, 1.0], (E, n, 1)), (E, n, 3), np.float32,
+        )
+        if obs == "pixels":
+            self.observation_space = Box(0, 255, (E, n, C.STATE_H, C.STATE_W, 3), np.uint8)
+        elif obs == "state":
+            self.observation_space = Box(-np.inf, np.inf, (E, n, pobs.STATE_OBS_DIM),
+                                         np.float32)
+        else:
+            self.observation_space = None
+
+    def _observe(self):
+        if self.obs_type == "pixels":
+            return _host(pobs.pixel_observation_batched(self.cfg, self._state))
+        if self.obs_type == "state":
+            return _host(pobs.state_observation(self._state))
+        return None
+
+    def reset(self):
+        if self._pool is None:
+            self._pool = penv.make_track_pool_checked(self.cfg, self._generator,
+                                                      self._pool_size)
+        self._state = penv.device_reset(self.cfg, self._generator, self.num_envs)
+        return self._observe()
+
+    def step(self, actions):
+        if self._state is None:
+            raise RuntimeError("call reset() first")
+        a = torch.as_tensor(np.reshape(np.asarray(actions, np.float32),
+                                       (self.num_envs, self.num_agents, -1)), device=self.device)
+        state = self._state
+        # Autoreset only when some env needs it (one read on the host, where
+        # JAX takes a lax.cond): reset_done_envs runs a spawn tick for the
+        # whole batch, which would double the physics of every step.
+        if bool(penv.episode_over(self.cfg, state).any()):
+            state = penv.reset_done_envs(self.cfg, state, self._pool, self._generator)
+        state, r, d = penv.step(self.cfg, state, a)
+        self._state = state
+        done = d | (state.steps >= self.cfg.max_episode_steps)
+        return self._observe(), _host(r), _host(done), {}
+
+    @property
+    def state(self):
+        """The batched ``EnvState`` (E, ...) on ``device``."""
+        return self._state
+
+    def close(self):
+        self._state = None
+
+
 REGISTRY = {
     "MultiCarRacing-v0": dict(
         max_episode_steps=C.MAX_EPISODE_STEPS, reward_threshold=C.REWARD_THRESHOLD
@@ -284,4 +387,5 @@ def make(env_id: str = "MultiCarRacing-v0", **kwargs) -> TimeLimit:
     return wrapped
 
 
-__all__ = ["Box", "MultiCarRacing", "REGISTRY", "TimeLimit", "make", "metadata"]
+__all__ = ["Box", "MultiCarRacing", "REGISTRY", "TimeLimit", "VectorMultiCarRacing", "make",
+           "metadata"]

@@ -7,11 +7,11 @@ does: fresh tracks, one per episode, the deterministic policy (the Gaussian
 mean) unless asked to sample, returns summed from the env's own step
 rewards and frozen at the step each episode finishes.
 
-The episodes' tracks come from the host generator (``episode_state``: one
-seed per episode, derived from the evaluation seed, each seed driving its
-own track and its own episode stream as in ``env.reset_batch``). The JAX
-package draws them on the device (``device_reset``, not yet ported), so the
-tracks are the same distribution as JAX's, not the same stream.
+The episodes' tracks are generated on the device, as the JAX package's are
+(``episode_state``: ``env.device_reset`` from a generator seeded from the
+evaluation seed). The generator is a ``torch.Generator``, not JAX's
+threefry, so the tracks are the same distribution as JAX's, not the same
+stream.
 
 The committed policies (``policies/*.npz``, the four solved checkpoints of
 ``docs/runs`` exported by ``scripts/export_torch_policies.py``) load by
@@ -31,24 +31,22 @@ import torch
 from .. import config as C
 from .. import env as penv
 from .. import convert
+from ..util import resolve_device
 from .ppo import (PPOConfig, _observe, _push_frames, _rms_normalize, _stack_obs,
                   clip_env_action, derived_seeds, init_frames, squash_env_action)
 
 POLICY_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "policies")
 
 
-def episode_seeds(seed: int, num_episodes: int) -> list[int]:
-    """The track seed of each evaluation episode, derived from ``seed``."""
-    return derived_seeds(seed, num_episodes, 1)
-
-
 def episode_state(env_cfg: C.EnvConfig, num_episodes: int, seed: int, device=None):
     """The reset state of ``num_episodes`` evaluation episodes on ``device``
-    (default CUDA): fresh host tracks, one seed per episode
-    (``episode_seeds``), through ``env.reset_batch`` with as many seeds as
-    envs."""
-    return penv.reset_batch(env_cfg, episode_seeds(seed, num_episodes), num_episodes,
-                            device=device)
+    (default CUDA): ``env.device_reset`` of one fresh track per episode, from
+    a generator seeded from ``seed`` (``derived_seeds`` stream 1, apart from
+    the training tracks'), as JAX's ``make_eval_fn`` draws them
+    (``evaluate.py:49-53``)."""
+    dev = resolve_device(device)
+    generator = torch.Generator(device=dev).manual_seed(derived_seeds(seed, 1, 1)[0])
+    return penv.device_reset(env_cfg, generator, num_episodes)
 
 
 def make_eval_fn(env_cfg: C.EnvConfig, ppo_cfg: PPOConfig, num_episodes: int,

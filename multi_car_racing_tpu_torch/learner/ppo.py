@@ -4,11 +4,12 @@ One training step is a T-step rollout of E lockstep envs (``env.step``, the
 state or pixel observation on every policy step, frame stacking, action
 repeat, the training-only shaping costs), GAE, and ``epochs`` x
 ``minibatches`` clipped-surrogate updates, then the autoreset of finished
-envs from a pool of host tracks. Where the JAX version is one jitted
-function over a ``TrainState`` pytree, this one is eager PyTorch on the
-state's device: the env stages run the port's CUDA kernels, the network and
-the updates are plain torch ops (cuDNN's bf16 convolutions for the pixel
-torso), and nothing waits for the card until the caller reads a metric.
+envs from a pool of tracks generated on the device (``init_train_state``).
+Where the JAX version is one jitted function over a ``TrainState`` pytree,
+this one is eager PyTorch on the state's device: the env stages run the
+port's CUDA kernels, the network and the updates are plain torch ops
+(cuDNN's bf16 convolutions for the pixel torso), and nothing waits for the
+card until the caller reads a metric.
 
 The optimizer is optax's ``chain(clip_by_global_norm, adam(schedule))``
 written out (``ClippedAdam``). A minibatch whose loss or gradient norm is
@@ -272,8 +273,8 @@ class TrainState:
 
 
 def derived_seeds(seed: int, count: int, stream: int) -> list[int]:
-    """``count`` track seeds drawn from ``seed``; ``stream`` keeps the
-    training pool's (0) apart from the evaluation episodes' (1)."""
+    """``count`` seeds drawn from ``seed``; ``stream`` keeps the training
+    tracks' (0) apart from the evaluation episodes' (1)."""
     words = np.random.SeedSequence(seed, spawn_key=(stream,)).generate_state(count)
     return [int(w) for w in words]
 
@@ -282,17 +283,18 @@ def init_train_state(env_cfg: C.EnvConfig, ppo_cfg: PPOConfig, seed: int,
                      device=None) -> TrainState:
     """A fresh learner on ``device`` (default CUDA).
 
-    The pool holds ``pool_size`` host tracks (``env.make_track_pool``); the
-    first episodes are drawn from it by the state's generator as
-    ``env.reset_done_envs`` draws them (``env.draw_episodes``, then
-    ``env.episodes_from_pool``). The JAX package draws the first episodes
-    with ``device_reset`` on tracks generated on the device instead; the
+    As in the JAX package (``ppo.py:227-232``), the tracks are generated on
+    the device: the autoreset pool of ``pool_size`` tracks
+    (``env.make_track_pool_checked``), then the first episodes
+    (``env.device_reset``), both from a generator seeded from ``seed``
+    (``derived_seeds`` stream 0). The state's own generator, seeded by
+    ``seed``, draws the autoreset episodes. JAX draws with threefry: the
     distributions agree, the streams do not."""
     dev = resolve_device(device)
     generator = torch.Generator(device=dev).manual_seed(seed)
-    pool = penv.make_track_pool(env_cfg, derived_seeds(seed, ppo_cfg.pool_size, 0), device=dev)
-    draws = penv.draw_episodes(env_cfg, ppo_cfg.num_envs, ppo_cfg.pool_size, generator)
-    env_state = penv.episodes_from_pool(env_cfg, pool, *draws)
+    tracks = torch.Generator(device=dev).manual_seed(derived_seeds(seed, 1, 0)[0])
+    pool = penv.make_track_pool_checked(env_cfg, tracks, ppo_cfg.pool_size)
+    env_state = penv.device_reset(env_cfg, tracks, ppo_cfg.num_envs)
     dummy_obs = _observe(env_cfg, ppo_cfg, env_state)
     net = ActorCritic(obs_type=ppo_cfg.obs_type, width=ppo_cfg.width,
                       frame_stack=ppo_cfg.frame_stack,

@@ -417,10 +417,14 @@ def _library(name: str = KERNEL):
         vp, ci = ctypes.c_void_p, ctypes.c_int
         if name == KERNEL:
             fn.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, vp]
-        elif name == CONTACT_KERNEL:
-            fn.argtypes = [vp] * 15 + [ci] * 7 + [vp]
-        else:                   # solve_island: its live-env list and count too
-            fn.argtypes = [vp] * 17 + [ci] * 7 + [vp]
+        else:
+            # contact_island, and solve_island with its live-env list and
+            # count: then the scratch (pointer, slots) and the stream.
+            fn.argtypes = [vp] * (15 if name == CONTACT_KERNEL else 17) + [ci] * 7 + [vp, ci, vp]
+            plan = getattr(lib, f"{name}_scratch_warps")
+            plan.argtypes, plan.restype = [ci, ci, ci], ci
+            floats = getattr(lib, f"{name}_warp_floats")
+            floats.argtypes, floats.restype = [ci, ci], ctypes.c_longlong
         fn.restype = ci
         err = getattr(lib, f"{name}_error_string")
         err.argtypes = [ci]
@@ -445,6 +449,41 @@ def _contact_tables(device: torch.device, num_cars: int):
             torch.from_numpy(contact_index_table(num_cars)).to(device),
         )
     return _params_cache[key]
+
+
+# K2 and K3 run one car per lane of a warp: at most 32 cars per env.
+MAX_WARP_CARS = 32
+_scratch_plans: dict = {}     # (kernel, device, E, N) -> scratch slots asked of the card
+
+
+def _check_warp_cars(label: str, num_cars: int) -> None:
+    if num_cars > MAX_WARP_CARS:
+        raise ValueError(f"{label}: {num_cars} cars per env; the contact kernels run one car "
+                         f"per lane of a warp, at most {MAX_WARP_CARS} cars per env")
+
+
+def _scratch(lib, name: str, dev: torch.device, envs: int, num_cars: int, mm: int,
+             scratch_warps: int | None):
+    """The (scratch tensor or None, its slots) of one K2 or K3 launch. A
+    warp's arrays live in shared memory while they fit a block's on ``dev``
+    (up to N = 9 on an H100); above that, in a global buffer of one slot per
+    resident warp of the kernel (``{name}_scratch_warps``, asked of the
+    card). ``scratch_warps`` > 0 forces the global buffer with that many
+    slots (``chip_smoke.py`` holds the two layouts equal with it)."""
+    if scratch_warps is None:
+        key = (name, str(dev), envs, num_cars)
+        if key not in _scratch_plans:
+            with torch.cuda.device(dev):
+                plan = getattr(lib, f"{name}_scratch_warps")(envs, num_cars, mm)
+            if plan < 0:
+                msg = getattr(lib, f"{name}_error_string")(-plan).decode()
+                raise RuntimeError(f"{name}: scratch query failed: {msg} ({-plan})")
+            _scratch_plans[key] = plan
+        scratch_warps = _scratch_plans[key]
+    if scratch_warps <= 0:
+        return None, 0
+    floats = getattr(lib, f"{name}_warp_floats")(num_cars, mm)
+    return torch.empty(scratch_warps * floats, dtype=torch.float32, device=dev), scratch_warps
 
 
 def _check_tensors(label: str, dev: torch.device, specs, contiguous: bool = True) -> None:
@@ -577,16 +616,22 @@ def _check_contacts(cs: ContactState, E: int, N: int, dev: torch.device):
 
 def launch_contacts(fin: torch.Tensor, ls_in: torch.Tensor, cs: ContactState,
                     num_cars: int, velocity_iters: int = C.VELOCITY_ITERS,
-                    position_iters: int = C.POSITION_ITERS):
+                    position_iters: int = C.POSITION_ITERS,
+                    scratch_warps: int | None = None):
     """Launch K2 on packed car rows (from :func:`pack_inputs`, car index
     e*num_cars + n) and the contact carry, on the current stream; returns
     (fout (59, n), ls_out (4, n), new ContactState). Counts the launch in
-    ``island_step.contact_launches``.
+    ``island_step.contact_launches``. At most ``MAX_WARP_CARS`` cars per
+    env.
 
     K2 is two kernels on the stream: the far pass (one thread per car) and
     the near pass (one warp per near env, from a list the far pass fills on
     the card). The list's count stays on the card, in the int32 tensor
-    ``launch_contacts.near_count`` of the last call; nothing here reads it."""
+    ``launch_contacts.near_count`` of the last call; nothing here reads it.
+    A near warp's arrays sit in shared memory or, where they do not fit a
+    block's (N >= 10 on an H100), in a global scratch buffer
+    (:func:`_scratch`; ``scratch_warps`` forces it)."""
+    _check_warp_cars("launch_contacts", num_cars)
     dev = fin.device
     n_cars = fin.shape[1]
     E = n_cars // num_cars
@@ -610,6 +655,7 @@ def launch_contacts(fin: torch.Tensor, ls_in: torch.Tensor, cs: ContactState,
     near_count = torch.empty(1, dtype=torch.int32, device=dev)
     k_vel = min(C.CONTACT_VELOCITY_ITERS, velocity_iters)
     k_pos = min(C.CONTACT_POSITION_ITERS, position_iters)
+    scratch, slots = _scratch(lib, CONTACT_KERNEL, dev, E, num_cars, mm, scratch_warps)
     with torch.cuda.device(dev):      # the stream and the launch belong to dev
         rc = lib.contact_island_launch(
             fin.data_ptr(), ls_in.data_ptr(), pni.data_ptr(), pti.data_ptr(),
@@ -618,6 +664,7 @@ def launch_contacts(fin: torch.Tensor, ls_in: torch.Tensor, cs: ContactState,
             _params(dev).data_ptr(), ctab.data_ptr(), itab.data_ptr(),
             near_list.data_ptr(), near_count.data_ptr(),
             E, num_cars, mm, int(velocity_iters), int(position_iters), k_vel, k_pos,
+            0 if scratch is None else scratch.data_ptr(), slots,
             torch.cuda.current_stream(dev).cuda_stream,
         )
     if rc != 0:
@@ -764,7 +811,7 @@ def launch_solve(fin: torch.Tensor, ls_in: torch.Tensor,
                  position_iters: int = C.POSITION_ITERS,
                  contact_velocity_iters: int = C.CONTACT_VELOCITY_ITERS,
                  contact_position_iters: int = C.CONTACT_POSITION_ITERS,
-                 dt: float = C.DT):
+                 dt: float = C.DT, scratch_warps: int | None = None):
     """Launch K3 on packed car rows (from :func:`pack_solve_inputs`, car
     index e*num_cars + n) and a bundle's rows (or none: the joints-only
     island), on the current stream. Every input must already be contiguous
@@ -781,7 +828,11 @@ def launch_solve(fin: torch.Tensor, ls_in: torch.Tensor,
     call's list and count stay on the card, in the int32 tensors
     ``launch_solve.live_list`` (E) and ``launch_solve.live_count`` (1; the
     list's first count entries are the live envs, in no fixed order);
-    nothing here reads them."""
+    nothing here reads them. At most ``MAX_WARP_CARS`` cars per env; a live
+    warp's arrays sit in shared memory or, where they do not fit a block's
+    (N >= 10 on an H100), in a global scratch buffer (:func:`_scratch`;
+    ``scratch_warps`` forces it)."""
+    _check_warp_cars("launch_solve", num_cars)
     dev = fin.device
     n_cars = fin.shape[1] if fin.dim() == 2 else -1
     E = n_cars // num_cars if num_cars > 0 else 0
@@ -817,12 +868,15 @@ def launch_solve(fin: torch.Tensor, ls_in: torch.Tensor,
         ctab_p, itab_p, ni_p, ti_p = ctab.data_ptr(), itab.data_ptr(), ni.data_ptr(), ti.data_ptr()
     k_vel = min(contact_velocity_iters, velocity_iters)
     k_pos = min(contact_position_iters, position_iters)
+    scratch, slots = (None, 0) if bundle is None else _scratch(
+        lib, SOLVE_KERNEL, dev, E, num_cars, mm, scratch_warps)
     with torch.cuda.device(dev):      # the stream and the launch belong to dev
         rc = lib.solve_island_launch(
             fin.data_ptr(), ls_in.data_ptr(), *rows, fout.data_ptr(), ls_out.data_ptr(),
             ni_p, ti_p, _params(dev, dt).data_ptr(), ctab_p, itab_p,
             live_list.data_ptr(), live_count.data_ptr(),
             E, num_cars, mm, int(velocity_iters), int(position_iters), int(k_vel), int(k_pos),
+            0 if scratch is None else scratch.data_ptr(), slots,
             torch.cuda.current_stream(dev).cuda_stream,
         )
     if rc != 0:

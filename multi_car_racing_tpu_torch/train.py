@@ -11,10 +11,10 @@ through ``learner.ppo`` (``init_train_state``, ``make_train_step``);
 ``--checkpoint`` / ``--ckpt-every`` / ``--resume`` through ``checkpoint``
 (``<checkpoint>_best`` after an evaluation that beats ``--best-so-far``);
 ``--eval-every`` through ``learner.evaluate`` (``episode_state`` +
-``make_eval_fn``). Each evaluation draws fresh host tracks from its own
-seed, ``eval_seed(seed, update)``, so a resumed run evaluates on the tracks
-the uninterrupted run would have (JAX splits an eval key on the device
-instead: the same distribution of tracks, not the same stream). The console
+``make_eval_fn``). Each evaluation generates fresh tracks on the device
+from its own seed, ``eval_seed(seed, update)``, so a resumed run evaluates
+on the tracks the uninterrupted run would have (JAX splits an eval key on
+the device: the same distribution of tracks, not the same stream). The console
 lines and the JSONL rows (``metrics.JsonlLogger``) carry the JAX keys, so
 ``scripts/curve.py`` reads the log unchanged.
 

@@ -4,13 +4,11 @@ the PyTorch port, on the CPU, from the same reset state.
 
     python scripts/compare_eval_episode.py carracing_v0_solved 3561214485
 
-The track seed names the episode as the port's evaluation draws it
-(``learner/evaluate.episode_seeds``; ``chip_smoke.py`` prints the worst
-episodes' seeds). The port resets that episode (``env.reset_batch``) and
-both packages run their own evaluation from that state: JAX's
-``learner/evaluate.make_eval_fn``, unchanged, reads it through a stand-in
-for its ``env.device_reset``; the port's ``make_eval_fn`` runs its plain
-PyTorch path. The full 180/60 solver and 1000-step limit: the port's CPU
+The track seed names a host-track episode: the port resets it
+(``env.reset_batch`` of that one seed) and both packages run their own
+evaluation from that state: JAX's ``learner/evaluate.make_eval_fn``,
+unchanged, reads it through a stand-in for its ``env.device_reset``; the
+port's ``make_eval_fn`` runs its plain PyTorch path. The full 180/60 solver and 1000-step limit: the port's CPU
 island takes ~3 min for one CarRacing-v0 episode, ~10 min at N = 2.
 Prints each side's returns, tiles visited, track tiles and length.
 

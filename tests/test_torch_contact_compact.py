@@ -154,16 +154,19 @@ def test_far_envs_at_two_cars_are_single_car_islands():
 
 
 def test_contact_launch_signature_matches_the_wrapper():
-    """contact_island_launch takes the 15 pointers and 7 ints (and the
-    stream) that fused_world._library types, the near list and its count
-    among them; the near pass reads the count on the card."""
+    """contact_island_launch takes the 15 pointers and 7 ints, then the
+    scratch buffer and its slots (and the stream) that fused_world._library
+    types, the near list and its count among them; the near pass reads the
+    count on the card, in its shared-memory and its scratch build."""
     src = (CSRC / "contact_island.cu").read_text()
     sig = re.search(r"int contact_island_launch\((.*?)\)\s*\{", src, re.S).group(1)
     params = [p.strip() for p in sig.split(",")]
     pointers = [p for p in params if "*" in p and "stream" not in p]
     ints = [p for p in params if p.startswith("int ")]
-    assert len(pointers) == 15 and len(ints) == 7 and params[-1] == "void* stream"
+    assert len(pointers) == 16 and len(ints) == 8 and params[-1] == "void* stream"
+    assert params[-3:-1] == ["float* scratch", "int scratch_warps"]
     assert any("near_list" in p for p in pointers)
     assert any("near_count" in p for p in pointers)
-    assert "far_pass_kernel<<<" in src and "near_pass_kernel<<<" in src
-    assert "if (w >= *near_count) return;" in src
+    assert "far_pass_kernel<<<" in src
+    assert "near_pass_kernel<false><<<" in src and "near_pass_kernel<true><<<" in src
+    assert "if (w >= *near_count) return;" in src and "i < count; i += stride" in src

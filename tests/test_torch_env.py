@@ -204,14 +204,21 @@ def test_render_knobs_are_refused(knob):
         assert ahead and int(st_on.skid.valid.sum()) == 0
 
 
-@pytest.mark.parametrize("field", ["auto_reset", "dtype", "obs_type", "max_track_points",
-                                   "max_track_retries"])
+@pytest.mark.parametrize("field", ["auto_reset", "dtype", "obs_type"])
 def test_config_has_no_field_the_port_does_not_read(field):
-    """A JAX-package knob the port does not implement yet is not a field of
+    """A JAX-package knob that no module of the port reads is not a field of
     the port's config, so setting it fails instead of being ignored."""
     assert field in {f.name for f in dataclasses.fields(JC.EnvConfig)}
     with pytest.raises(TypeError):
         EnvConfig(**{field: getattr(JC.EnvConfig(), field)})
+
+
+@pytest.mark.parametrize("field", ["max_track_points", "max_track_retries"])
+def test_config_track_generator_bounds_carry_jax_defaults(field):
+    """The on-device generator's bounds are fields of the port's config with
+    the JAX package's defaults (env.device_reset and the pools read them)."""
+    assert getattr(EnvConfig(), field) == getattr(JC.EnvConfig(), field)
+    assert getattr(EnvConfig(**{field: 7}), field) == 7
 
 
 def test_max_episode_steps_is_read_by_reset_done_envs():
@@ -219,7 +226,7 @@ def test_max_episode_steps_is_read_by_reset_done_envs():
     package's default, and ``env.reset_done_envs`` resets at that limit: a
     fresh state (steps == 1) is reset at a limit of 1 and kept at 2."""
     assert EnvConfig().max_episode_steps == JC.EnvConfig().max_episode_steps
-    pool = penv.make_track_pool(PCFG, (5,), device="cpu")
+    pool = penv.make_host_track_pool(PCFG, (5,), device="cpu")
     for limit, reset in ((1, True), (2, False)):
         cfg = dataclasses.replace(PCFG, max_episode_steps=limit)
         st = penv.reset_batch(cfg, (0,), 1, device="cpu")     # steps == 1

@@ -1,4 +1,4 @@
-"""Episode management of the port (env.make_track_pool, draw_episodes,
+"""Episode management of the port (env.make_host_track_pool, draw_episodes,
 reset_envs_from_pool, reset_done_envs) against the JAX package's, on the CPU.
 
 - ``reset_envs_from_pool`` with given pool indices, car orders and
@@ -13,7 +13,7 @@ reset_envs_from_pool, reset_done_envs) against the JAX package's, on the CPU.
 - ``draw_episodes`` is reproducible from a seeded generator, its indices
   fall in the pool, its orders are permutations, and its directions follow
   ``use_random_direction``.
-- ``make_track_pool`` is bit-equal to ``track_from_arrays`` of the same
+- ``make_host_track_pool`` is bit-equal to ``track_from_arrays`` of the same
   seeds and to the JAX package's packing of its host tracks.
 """
 
@@ -56,7 +56,7 @@ def test_reset_envs_from_pool_matches_jax(n):
     cfg = EnvConfig(num_agents=n, use_random_direction=False)
     jcfg = JC.EnvConfig(num_agents=n, use_random_direction=False, backwards_flag=False,
                         solver="xla")
-    pool = penv.make_track_pool(cfg, POOL_SEEDS, device="cpu")
+    pool = penv.make_host_track_pool(cfg, POOL_SEEDS, device="cpu")
     state = penv.reset_batch(cfg, SEEDS, len(SEEDS), device="cpu")
     state = state.replace(done=torch.tensor(DONE),
                           steps=torch.tensor(STEPS, dtype=torch.int32))
@@ -122,7 +122,7 @@ def test_draw_episodes(random_direction):
 
 def test_make_track_pool_is_the_host_tracks():
     cfg = EnvConfig(num_agents=2)
-    pool = penv.make_track_pool(cfg, POOL_SEEDS, device="cpu")
+    pool = penv.make_host_track_pool(cfg, POOL_SEEDS, device="cpu")
     arrays = [pack_track_arrays(*phost.generate_track(pseed.np_random(s)[0])[:2],
                                 cfg.max_tiles) for s in POOL_SEEDS]
     same = track_from_arrays(arrays, "cpu")
@@ -136,4 +136,4 @@ def test_make_track_pool_is_the_host_tracks():
         ref = np.stack([np.asarray(getattr(t, f.name)) for t in jtracks])
         np.testing.assert_array_equal(got.numpy(), ref, err_msg=f.name)
     with pytest.raises(ValueError):
-        penv.make_track_pool(cfg, (), device="cpu")
+        penv.make_host_track_pool(cfg, (), device="cpu")

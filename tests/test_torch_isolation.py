@@ -38,7 +38,7 @@ from multi_car_racing_tpu_torch import config, convert, env, obs, seeding, util,
 from multi_car_racing_tpu_torch import gym_api, metrics, monitor, train, window
 from multi_car_racing_tpu_torch.physics import (
     collide, fused_world, joints, overlap, shapes, state, tire, track_engine, world)
-from multi_car_racing_tpu_torch.track import common, host
+from multi_car_racing_tpu_torch.track import common, device, host
 from multi_car_racing_tpu_torch.render import geometry, particles, pixels, raster
 spec = importlib.util.spec_from_file_location("chip_smoke", {str(SMOKE)!r})
 mod = importlib.util.module_from_spec(spec)

@@ -118,6 +118,104 @@ def test_contact_kernel_matches_plain_on_card(num_envs, num_cars):
     assert int((ks != ps).sum()) <= 1
 
 
+def _contact_state(num_envs, num_cars, steps=40, most=400):
+    """_k2_state's drive, at least ``steps`` steps and on until the next
+    step's Collide pass has a live point in some env (at most ``most``)."""
+    cfg = EnvConfig(num_agents=num_cars, use_random_direction=False)
+    state = penv.reset_batch(cfg, range(8), num_envs, device="cuda")
+    act = torch.as_tensor(np.random.RandomState(1).uniform(
+        [-1, 0, 0], [1, 1, 0.2], size=(num_envs, num_cars, 3)), dtype=torch.float32,
+        device="cuda")
+    for t in range(most):
+        pre = apply_controls(state.cars, act)
+        if t >= steps and bool(collide.collide(pre, num_cars).point_ok.any()):
+            break
+        state, _, _ = penv.step(cfg, state, act)
+    return pre, state.wheel_on_road, state.contacts
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("num_cars", [10, 12])
+def test_contact_kernels_past_shared_memory_match_plain(num_cars):
+    """K2 and K3 at N = 10 and 12, where a warp's arrays (244,936 bytes at
+    N = 10) do not fit the card's shared memory a block and live in a global
+    scratch buffer: against island_step_plain and world.world_step after 40
+    or more driven steps (until a live contact), within both bars; the
+    wrapper chose the scratch; a launch forced onto 5 scratch slots (each
+    warp looping over several envs) is byte-equal to it."""
+    _need_card()
+    pre, on_road, cs = _contact_state(48, num_cars)
+    mm = cs.ids.shape[1]
+    k, ks, kc = fused_world.island_step(pre, on_road, cs)
+    p, ps, pc = fused_world.island_step_plain(pre, on_road, cs)
+    torch.cuda.synchronize()
+    assert int(fused_world.launch_contacts.near_count) > 0 and float(pc.normal_imp.max()) > 0
+    for f in CAR_FIELDS:
+        _assert_bars(f, getattr(p, f), getattr(k, f), getattr(pre, f))
+    _assert_bars("normal_imp", pc.normal_imp, kc.normal_imp, cs.normal_imp)
+    _assert_bars("tangent_imp", pc.tangent_imp, kc.tangent_imp, cs.tangent_imp)
+    assert torch.equal(k.limit_state, p.limit_state)
+    assert int((kc.ids != pc.ids).any(1).sum()) <= 1 and int((ks != ps).sum()) <= 1
+    lib = fused_world._library(fused_world.CONTACT_KERNEL)
+    assert lib.contact_island_scratch_warps(48, num_cars, mm) > 0
+    fin, ls_in = fused_world.pack_inputs(pre, on_road)
+    a = fused_world.launch_contacts(fin, ls_in, cs, num_cars)
+    b = fused_world.launch_contacts(fin, ls_in, cs, num_cars, scratch_warps=5)
+    for x, y in zip((a[0], a[1], a[2].normal_imp, a[2].tangent_imp, a[2].ids),
+                    (b[0], b[1], b[2].normal_imp, b[2].tangent_imp, b[2].ids)):
+        assert torch.equal(x, y)
+    *_, post, force, motor, bundle, _, _ = _solve_from(pre, on_road, cs, num_cars)
+    _assert_solve_bars(post, force, motor, bundle, num_cars)
+    fin3, ls3 = fused_world.pack_solve_inputs(post, force, motor)
+    a = fused_world.launch_solve(fin3, ls3, bundle, num_cars)
+    b = fused_world.launch_solve(fin3, ls3, bundle, num_cars, scratch_warps=5)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("num_cars", [6, 8])
+def test_contact_kernels_scratch_layout_matches_plain(num_cars):
+    """Up to N = 9 the wrapper keeps a warp's arrays in shared memory; the
+    global scratch layout, forced onto 5 slots, holds the plain versions'
+    bars there too (it is another build of the same arithmetic: its fused
+    multiply-adds may round a last bit differently from the shared build's,
+    so the two are not compared byte for byte)."""
+    _need_card()
+    pre, on_road, cs = _contact_state(48, num_cars)
+    fin, ls_in = fused_world.pack_inputs(pre, on_road)
+    fout, ls_out, kc = fused_world.launch_contacts(fin, ls_in, cs, num_cars, scratch_warps=5)
+    k, ks = fused_world.unpack_outputs(pre, fout, ls_out)
+    p, ps, pc = fused_world.island_step_plain(pre, on_road, cs)
+    torch.cuda.synchronize()
+    assert float(pc.normal_imp.max()) > 0
+    for f in CAR_FIELDS:
+        _assert_bars(f, getattr(p, f), getattr(k, f), getattr(pre, f))
+    _assert_bars("normal_imp", pc.normal_imp, kc.normal_imp, cs.normal_imp)
+    _assert_bars("tangent_imp", pc.tangent_imp, kc.tangent_imp, cs.tangent_imp)
+    assert torch.equal(k.limit_state, p.limit_state)
+    *_, post, force, motor, bundle, _, _ = _solve_from(pre, on_road, cs, num_cars)
+    fin3, ls3 = fused_world.pack_solve_inputs(post, force, motor)
+    fout3, ls3_out, ni, ti = fused_world.launch_solve(fin3, ls3, bundle, num_cars,
+                                                       scratch_warps=5)
+    k3 = post.replace(**fused_world._solved_fields(fout3, ls3_out, 48, num_cars))
+    p3, p_bundle = world.world_step(post, force, motor, contacts=bundle)
+    torch.cuda.synchronize()
+    for f in CAR_FIELDS:
+        _assert_bars(f, getattr(p3, f), getattr(k3, f), getattr(post, f))
+    _assert_bars("normal_imp", p_bundle.normal_imp, ni, bundle.normal_imp)
+    _assert_bars("tangent_imp", p_bundle.tangent_imp, ti, bundle.tangent_imp)
+
+
+def test_contact_wrappers_refuse_more_cars_than_a_warp_has():
+    """K2 and K3 carry one car per lane: the wrappers refuse N = 33 with a
+    ValueError naming the limit, before any launch (no card needed)."""
+    z = torch.zeros(1)
+    with pytest.raises(ValueError, match="at most 32 cars"):
+        fused_world.launch_contacts(z, z, None, 33)
+    with pytest.raises(ValueError, match="at most 32 cars"):
+        fused_world.launch_solve(z, z, None, 33)
+
+
 @pytest.mark.gpu
 def test_contact_kernel_is_deterministic_and_sees_contacts():
     _need_card()
@@ -148,7 +246,7 @@ def _spawn_tick(num_envs, num_cars=2):
     """A spawn tick's island inputs at ``num_envs`` envs (a env's two cars
     6 m apart on the grid: none near at N = 2)."""
     cfg = EnvConfig(num_agents=num_cars, use_random_direction=False)
-    pool = penv.make_track_pool(cfg, range(4), device="cuda")
+    pool = penv.make_host_track_pool(cfg, range(4), device="cuda")
     idx, orders, dirs = penv.draw_episodes(cfg, num_envs, 4,
                                            torch.Generator(device="cuda").manual_seed(2))
     sp = penv.spawn_state(cfg, tree_map(lambda x: x.index_select(0, idx), pool), orders, dirs)
@@ -303,7 +401,7 @@ def test_track_kernel_matches_plain_on_card(num_envs, num_cars):
 def _cull_track(num_cars: int):
     """The 8 host tracks of seeds 0-7 tiled to 256 envs on the card."""
     cfg = EnvConfig(num_agents=num_cars, use_random_direction=False)
-    pool = penv.make_track_pool(cfg, range(8), device="cuda")
+    pool = penv.make_host_track_pool(cfg, range(8), device="cuda")
     idx = torch.arange(256, device="cuda") % 8
     return tree_map(lambda x: x.index_select(0, idx), pool)
 

@@ -146,7 +146,7 @@ def test_clipped_adam_matches_optax():
 
 def test_env_helpers_for_the_learner():
     cfg = EnvConfig(num_agents=2, velocity_iters=8, position_iters=3, max_episode_steps=5)
-    pool = penv.make_track_pool(cfg, (0, 1, 2), device="cpu")
+    pool = penv.make_host_track_pool(cfg, (0, 1, 2), device="cpu")
     g = torch.Generator().manual_seed(3)
     draws = penv.draw_episodes(cfg, 4, 3, g)
     fresh = penv.episodes_from_pool(cfg, pool, *draws)
@@ -367,12 +367,16 @@ def test_squashed_action_head():
 
 
 def test_init_train_state_draws_from_its_pool():
+    """As JAX's (ppo.py:227-232): a checked pool of tracks generated on the
+    device for the autoresets, and first episodes on tracks of their own
+    (device_reset), both reproducible from the seed."""
     cfg, pcfg = _tiny(n_envs=6, pool_size=3)
     ts = ppo.init_train_state(cfg, pcfg, 2, device="cpu")
-    pool_xy = ts.pool.xy[:, :4].reshape(3, -1)
-    for e in range(6):
-        assert any(torch.equal(ts.env_state.track.xy[e, :4].reshape(-1), p) for p in pool_xy)
+    assert tuple(ts.pool.xy.shape) == (3, cfg.max_tiles, 2)
+    assert bool((ts.pool.n_tiles >= 200).all()) and not bool(ts.env_state.done.any())
+    assert len({tuple(x.flatten()[:8].tolist()) for x in ts.env_state.track.xy}) == 6
     again = ppo.init_train_state(cfg, pcfg, 2, device="cpu")
+    assert torch.equal(ts.pool.xy, again.pool.xy)
     assert torch.equal(ts.env_state.cars.hull_c, again.env_state.cars.hull_c)
     assert all(torch.equal(a, b) for a, b in zip(ts.net.parameters(), again.net.parameters()))
     assert ts.obs_rms is None and ts.frames is None and ts.update_i == 0

@@ -96,28 +96,35 @@ def test_dead_envs_solve_as_the_joints_only_island(n):
 
 def test_solve_launch_signature_matches_the_wrapper(monkeypatch):
     """solve_island_launch takes 17 pointers (the live-env list and count
-    among them), 7 ints and the stream, as fused_world._library types it;
-    the list pass launches only with a bundle (MM != 0), the solve pass
-    always, and its live warps return past the count they read on the
-    card."""
+    among them), 7 ints, then the scratch buffer and its slots, and the
+    stream, as fused_world._library types it; the list pass launches only
+    with a bundle (MM != 0), the solve pass always, and its live warps
+    return past the count they read on the card (the scratch build loops
+    up to it)."""
     src = (CSRC / "solve_island.cu").read_text()
     sig = re.search(r"int solve_island_launch\((.*?)\)\s*\{", src, re.S).group(1)
     params = [p.strip() for p in sig.split(",")]
     pointers = [p for p in params if "*" in p and "stream" not in p]
     ints = [p for p in params if p.startswith("int ")]
-    assert len(pointers) == 17 and len(ints) == 7 and params[-1] == "void* stream"
-    assert [p.split("*")[-1].strip() for p in pointers[-2:]] == ["live_list", "live_count"]
+    assert len(pointers) == 18 and len(ints) == 8 and params[-1] == "void* stream"
+    assert [p.split("*")[-1].strip() for p in pointers[-3:-1]] == ["live_list", "live_count"]
+    assert params[-3:-1] == ["float* scratch", "int scratch_warps"]
     body = src[src.index("int solve_island_launch("):]
     assert body.index("if (MM != 0) {") < body.index("list_pass_kernel<<<")
-    assert body.index("list_pass_kernel<<<") < body.index("solve_pass_kernel<<<")
-    assert "if (w >= *live_count) return;" in src
+    assert body.index("list_pass_kernel<<<") < body.index("solve_pass_kernel<true><<<")
+    assert body.index("list_pass_kernel<<<") < body.index("solve_pass_kernel<false><<<")
+    assert "if (w >= *live_count) return;" in src and "i < count; i += stride" in src
     assert "solve_live_env(live_list[w]," in src
 
     class Fn:
         argtypes = restype = None
 
-    fake = type("Lib", (), {"solve_island_launch": Fn(), "solve_island_error_string": Fn()})()
+    fake = type("Lib", (), {name: Fn() for name in (
+        "solve_island_launch", "solve_island_error_string", "solve_island_scratch_warps",
+        "solve_island_warp_floats")})()
     monkeypatch.setattr(_cuda, "load", lambda name: fake)
     fused_world._library(fused_world.SOLVE_KERNEL)
     assert fake.solve_island_launch.argtypes == (
-        [ctypes.c_void_p] * 17 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+        [ctypes.c_void_p] * 17 + [ctypes.c_int] * 7
+        + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
+    assert fake.solve_island_scratch_warps.argtypes == [ctypes.c_int] * 3
