@@ -40,7 +40,10 @@ tracks, and the batched facade's (phases 27-29: ``VectorMultiCarRacing``
 runs K1 or K2 and K4/K5 on every step, K6 on every pixel frame), are
 generated on the card by ``track/device.py``, plain torch ops as JAX's is
 XLA. Phase 30 drives K2 and K3 past N = 9, where a warp's arrays move from
-shared memory to a global scratch buffer.
+shared memory to a global scratch buffer. Phases 31-32 run the learner data
+parallel (``parallel/mesh.py``): a world of one over NCCL, and two ranks
+sharing the card over gloo, each launching K1, or K2, K4/K5 and K6, on its
+rows of the env batch; phase 33 runs ``demo.py``.
 
 K3 (``csrc/solve_island.cu``, the island solve alone from a ContactBundle
 made outside) is on none of those paths: its path is
@@ -241,9 +244,32 @@ on_grass, count and nearest_beta equal, bonus within 2e-5.
      against world.world_step on the driven state (the island bars; near
      envs, live contacts), the wrapper's scratch slots byte-equal to 7
      slots, two launches bit-identical, K2's and K3's ms and bounds
- 31. the learner JSON line, the facade JSON line, the generation JSON line
-     (phases 27-30), the kernels JSON line, the nvidia-smi line, and the
-     result line
+ 31. a world of one over NCCL (parallel/mesh.py's init in this process,
+     a process group on 127.0.0.1): the state recipe's learner (phase 22's
+     shape) from one start, DP_UPDATES = 2 updates run twice without a
+     world and once in the world (every collective of the sharded step on
+     one rank): the world's metrics and learner bytes (parameters, Adam's
+     moments and count, obs_rms, the generator's state) equal the plain
+     runs' wherever those repeat each other byte for byte, else its metrics
+     within 1e-4 * max(1, |x|); K1 and K4/K5 once per step and reset tick
+ 32. two ranks sharing the card over gloo (this script as two processes,
+     ``--rank-drill``): at the state recipe (K1, rows 512 + 512) one
+     update, whose metrics match phase 31's one-process update 1 within
+     1e-4 * max(1, |x|); at the pixel recipe (phase 21's shape: K2, K4/K5
+     and K6 on each rank's 512 rows) two updates and a collective
+     checkpoint. After every update the learner's hash is equal on both
+     ranks and every metric finite and equal; each rank's counts equal its
+     steps and frames. No metric bar across layouts at the pixel recipe:
+     cuDNN's bf16 convolutions may pick other algorithms at 512 rows. The
+     checkpoint restored in this process equals the ranks' rows joined,
+     and hashes as their learner. Each rank's env-steps/s
+ 33. demo.py on the card: 50 steps of the track follower at N = 2 through
+     the facade, a GIF written through Pillow; counts zeroed before it:
+     K2 and K4/K5 once per step and for the reset's spawn tick, K6 once per
+     frame (the reset's and each step's)
+ 34. the learner JSON line, the facade JSON line, the generation JSON line
+     (phases 27-30), the data-parallel JSON line (phases 31-33), the
+     kernels JSON line, the nvidia-smi line, and the result line
 
 The script imports nothing of JAX or of the JAX package.
 """
@@ -254,6 +280,7 @@ import contextlib
 import io
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -268,7 +295,8 @@ from multi_car_racing_tpu_torch import EnvConfig, _cuda, checkpoint, convert  # 
 from multi_car_racing_tpu_torch import config as C  # noqa: E402
 from multi_car_racing_tpu_torch.learner import evaluate, ppo as lppo  # noqa: E402
 from multi_car_racing_tpu_torch import env as penv, obs as pobs, seeding  # noqa: E402
-from multi_car_racing_tpu_torch import gym_api, monitor, train  # noqa: E402
+from multi_car_racing_tpu_torch import demo, gym_api, monitor, train  # noqa: E402
+from multi_car_racing_tpu_torch.parallel import mesh  # noqa: E402
 from multi_car_racing_tpu_torch.render import pixels, raster  # noqa: E402
 from multi_car_racing_tpu_torch.physics import collide, fused_world  # noqa: E402
 from multi_car_racing_tpu_torch.physics import tire, track_cases, track_engine  # noqa: E402
@@ -379,6 +407,14 @@ WIDE_E = 64
 WIDE_NEAR_SHARE = 0.25          # drive until this share of the envs is near, and a contact
 WIDE_MAX_STEPS = 400
 SCRATCH_SLOTS = 7               # forced scratch slots: each warp loops over ~9 of 64 envs
+# Phases 31-33: data parallelism (parallel/mesh.py) and the demo.
+DP_UPDATES = 2                  # updates per run of phases 31 and 32
+DP_RANKS = 2                    # phase 32's ranks, sharing the one card over gloo
+DP_TIMEOUT = 600                # seconds phase 32 waits for its ranks
+DP_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "multi_car_racing_tpu_torch",
+                      "_build", "chip_smoke_ranks")
+DP_METRIC_TOL = 1e-4            # tests/test_torch_multiprocess.py's bar on a metric
+DEMO_STEPS = 50
 
 
 def phase(msg: str) -> None:
@@ -2025,6 +2061,7 @@ def ppo_phase(label: str, env_cfg, pcfg, smi: str, dev: torch.device) -> dict:
     torch.cuda.synchronize()
     ckpt_s = time.perf_counter() - t0
     same = train_states_equal(ts, back)
+    remove_checkpoint(path)
     phase(f"{label}: parameters moved (max |change| {moved:.4g}); launches {counts}; "
           f"checkpoint save + restore on the card {ckpt_s:.3f} s, every tensor equal: {same}")
     if not same:
@@ -2035,28 +2072,40 @@ def ppo_phase(label: str, env_cfg, pcfg, smi: str, dev: torch.device) -> dict:
             "checkpoint_s": ckpt_s, "checkpoint_equal": same}
 
 
+LEARNER_BASE = dict(rollout_len=32, action_repeat=4, train_grass_cost=0.5, train_skip_cost=2.0,
+                    anneal_lr=True, epochs=4, minibatches=8)
+
+
+def pixel_recipe():
+    """multi2px's shape: N=2, E=1024, T=32, R=4, K=2, squash, lr 1e-4, kl_target 0.03."""
+    return EnvConfig(num_agents=2), lppo.PPOConfig(
+        num_envs=1024, obs_type="pixels", frame_stack=2, squash_actions=True, lr=1e-4,
+        kl_target=0.03, total_updates=1500, **LEARNER_BASE)
+
+
+def state_recipe():
+    """The state recipe's shape: CarRacing-v0, E=1024, T=32, R=4, normalize, width 512."""
+    return (EnvConfig(num_agents=1, use_random_direction=False, backwards_flag=False),
+            lppo.PPOConfig(num_envs=1024, normalize_obs=True, width=512, total_updates=1200,
+                           **LEARNER_BASE))
+
+
 def learner_phases(smi: str, dev: torch.device) -> dict:
-    phase(f"19/31 the committed policies' networks on the card vs the CPU ({LEARNER_NET_OBS} "
+    phase(f"19/34 the committed policies' networks on the card vs the CPU ({LEARNER_NET_OBS} "
           f"observations each, after {LEARNER_DRIVE} driven steps)")
     nets = network_phase(dev)
-    phase(f"20/31 the committed policies evaluated on the card: {LEARNER_EPISODES} fresh "
+    phase(f"20/34 the committed policies evaluated on the card: {LEARNER_EPISODES} fresh "
           f"episodes each on tracks generated on the card, seed {LEARNER_SEED}, "
           f"deterministic")
     t20 = time.perf_counter()
     evals = evaluation_phase(smi, dev)
     phase(f"phase 20 took {time.perf_counter() - t20:.1f} s")
-    base = dict(rollout_len=32, action_repeat=4, train_grass_cost=0.5, train_skip_cost=2.0,
-                anneal_lr=True, epochs=4, minibatches=8)
-    phase("21/31 three PPO updates at the pixel recipe's shape (multi2px: N=2, E=1024, T=32, "
+    phase("21/34 three PPO updates at the pixel recipe's shape (multi2px: N=2, E=1024, T=32, "
           "R=4, K=2, squash, lr 1e-4, kl_target 0.03)")
-    pixel = ppo_phase("pixel PPO", EnvConfig(num_agents=2), lppo.PPOConfig(
-        num_envs=1024, obs_type="pixels", frame_stack=2, squash_actions=True, lr=1e-4,
-        kl_target=0.03, total_updates=1500, **base), smi, dev)
-    phase("22/31 three PPO updates at the state recipe's shape (CarRacing-v0, E=1024, T=32, "
+    pixel = ppo_phase("pixel PPO", *pixel_recipe(), smi, dev)
+    phase("22/34 three PPO updates at the state recipe's shape (CarRacing-v0, E=1024, T=32, "
           "R=4, normalize, width 512)")
-    state = ppo_phase("state PPO", EnvConfig(num_agents=1, use_random_direction=False,
-                                             backwards_flag=False), lppo.PPOConfig(
-        num_envs=1024, normalize_obs=True, width=512, total_updates=1200, **base), smi, dev)
+    state = ppo_phase("state PPO", *state_recipe(), smi, dev)
     return {"networks": nets, "evaluations": evals, "ppo_pixels": pixel, "ppo_state": state}
 
 
@@ -2263,6 +2312,279 @@ def train_cli_phase() -> dict:
                                               "eval_tiles_frac", "eval_episodes")}}
 
 
+def learner_tensors(ts) -> list:
+    """What every rank must hold alike: the parameters, Adam's moments and
+    count, obs_rms and the generator's state."""
+    out = [*ts.net.parameters(), *ts.opt.mu, *ts.opt.nu, ts.opt.count, ts.generator.get_state()]
+    if ts.obs_rms is not None:
+        out += [ts.obs_rms[k] for k in sorted(ts.obs_rms)]
+    return out
+
+
+def dp_updates(step, ts, label: str, env_steps: int, updates: int,
+               world: mesh.World = mesh.World()):
+    """``updates`` train steps: each one's wall seconds, env-steps/s (of
+    ``env_steps``, this rank's), metrics, and the hash of learner_tensors
+    (checked equal on every rank of ``world``)."""
+    out = []
+    for u in range(updates):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ts, metrics = step(ts)
+        metrics = {k: float(v) for k, v in metrics.items()}
+        wall = time.perf_counter() - t0
+        h = world.check_replicated(learner_tensors(ts), f"{label} update {u + 1}")
+        out.append({"wall_s": wall, "env_steps_per_s": env_steps / wall, "hash": h,
+                    "metrics": metrics})
+        bad = [k for k, v in metrics.items() if not np.isfinite(v)]
+        if bad:
+            raise AssertionError(f"{label} update {u + 1}: metrics not finite: {bad}")
+    return ts, out
+
+
+def remove_checkpoint(path: str) -> None:
+    """Delete a checkpoint's two slots and pointer once its phase has read
+    it back, so the checkout's disk holds one checkpoint at a time."""
+    for name in checkpoint._slots(path):
+        if os.path.exists(name):
+            os.remove(name)
+
+
+# The last line of a rank that died of gloo's sockets or of the rendezvous.
+TRANSPORT_ERRORS = ("DistNetworkError", "DistStoreError", "Connection closed",
+                    "Connection reset", "Connection refused", "Address already in use")
+
+
+def transport_failure(out: str) -> bool:
+    """Whether a rank's output ends in an error of the connection between
+    the ranks rather than of the work or of a check."""
+    last = out.strip().splitlines()[-1:]
+    return bool(last) and any(e in last[0] for e in TRANSPORT_ERRORS)
+
+
+def metric_misses(got: dict, want: dict) -> dict:
+    """{key: |got - want| / max(1, |want|)} over the metrics past DP_METRIC_TOL."""
+    rel = {k: abs(got[k] - v) / max(1.0, abs(v)) for k, v in want.items()}
+    return {k: r for k, r in rel.items() if not r <= DP_METRIC_TOL}
+
+
+def world_of_one_phase(smi: str, dev: torch.device) -> dict:
+    """Phase 31: the state recipe's learner, two updates from one start, run
+    twice without a world and once in a world of one over NCCL
+    (parallel.mesh.init in this process): the world's metrics and learner
+    bytes equal the plain runs' wherever those repeat each other byte for
+    byte, else its metrics within DP_METRIC_TOL."""
+    env_cfg, pcfg = state_recipe()
+    os.makedirs(DP_DIR, exist_ok=True)
+    start = os.path.join(DP_DIR, "world_of_one_start")
+    t0 = time.perf_counter()
+    checkpoint.save(start, lppo.init_train_state(env_cfg, pcfg, LEARNER_SEED, dev))
+    init_s = time.perf_counter() - t0
+    env_steps = pcfg.num_envs * pcfg.rollout_len * pcfg.action_repeat
+    runs = {}
+    for label in ("one process", "one process again"):
+        ts = checkpoint.restore(start, device=dev)
+        runs[label] = dp_updates(lppo.make_train_step(env_cfg, pcfg), ts, label, env_steps,
+                                 DP_UPDATES)[1]
+    t0 = time.perf_counter()
+    world, wdev = mesh.init(f"127.0.0.1:{mesh.free_port()}", 1, 0, dev)
+    init_group_s = time.perf_counter() - t0
+    try:
+        if world.backend != "nccl":
+            raise AssertionError(f"a world of one on a card chose {world.backend}, not nccl")
+        ts = checkpoint.restore(start, device=wdev, world=world)
+        zero_counts()
+        runs["world of one"] = dp_updates(lppo.make_train_step(env_cfg, pcfg, world), ts,
+                                          "world of one", env_steps, DP_UPDATES, world)[1]
+        counts = read_counts()
+    finally:
+        mesh.shutdown()
+    remove_checkpoint(start)
+    check_counts("world of one", counts,
+                 DP_UPDATES * (pcfg.rollout_len * pcfg.action_repeat + 1), 0, 1)
+    one, again, dist_run = runs["one process"], runs["one process again"], runs["world of one"]
+    repeats = all(a["hash"] == b["hash"] and a["metrics"] == b["metrics"]
+                  for a, b in zip(one, again))
+    same = all(a["hash"] == d["hash"] and a["metrics"] == d["metrics"]
+               for a, d in zip(one, dist_run))
+    misses = [metric_misses(d["metrics"], a["metrics"]) for a, d in zip(one, dist_run)]
+    for label, run in runs.items():
+        phase(f"{label}: " + "; ".join(
+            f"update {u + 1} {r['wall_s']:.3f} s = {r['env_steps_per_s']:.1f} env-steps/s, "
+            f"loss {r['metrics']['loss']:.6g}, learner hash {r['hash'][:16]}"
+            for u, r in enumerate(run)) + f" on {smi}")
+    phase(f"world of one: backend {world.backend}, process group {init_group_s:.3f} s; init "
+          f"{init_s:.3f} s; the plain run repeats itself byte for byte: {repeats}; the world "
+          f"of one equals it byte for byte: {same}; metrics past {DP_METRIC_TOL}: {misses}; "
+          f"launches {counts}")
+    if (repeats and not same) or any(misses):
+        raise AssertionError("the world of one differs from the run without a world")
+    return {"backend": world.backend, "init_s": init_s, "process_group_s": init_group_s,
+            "plain_repeats_bytes": repeats, "world_equals_plain_bytes": same,
+            "launches": counts, "runs": runs}
+
+
+def rank_drill(argv: list) -> int:
+    """One rank of phase 32 (``chip_smoke.py --rank-drill RANK PORT DIR``):
+    the state recipe (one update) and the pixel recipe (DP_UPDATES updates,
+    then a collective checkpoint) on its rows; writes DIR/rank<r>.json and
+    its pixel rows to DIR/rows<r>.pt."""
+    rank, port, out_dir = int(argv[0]), int(argv[1]), argv[2]
+    if not torch.cuda.is_available():
+        return 2
+    world, dev = mesh.init(f"127.0.0.1:{port}", DP_RANKS, rank, "cuda")
+    res = {"rank": rank, "backend": world.backend, "device": str(dev)}
+    try:
+        # The backend's broadcast on a card tensor (train.py's evaluation
+        # decision); the sums, maxima and gathers run in the steps below.
+        got = float(world.broadcast(torch.full((1,), float(rank + 1), device=dev)))
+        if got != 1.0:
+            raise AssertionError(f"rank {rank}: broadcast gave {got}, not rank 0's 1.0")
+        for label, (env_cfg, pcfg), updates in (("state", state_recipe(), 1),
+                                                ("pixels", pixel_recipe(), DP_UPDATES)):
+            lo, hi = world.rows(pcfg.num_envs)
+            t0 = time.perf_counter()
+            ts = lppo.init_train_state(env_cfg, pcfg, LEARNER_SEED, dev, world)
+            torch.cuda.synchronize()
+            init_s = time.perf_counter() - t0
+            zero_counts()
+            ts, ups = dp_updates(lppo.make_train_step(env_cfg, pcfg, world), ts,
+                                 f"rank {rank} {label}", (hi - lo) * pcfg.rollout_len *
+                                 pcfg.action_repeat, updates, world)
+            res[label] = {"rows": [lo, hi], "init_s": init_s, "updates": ups,
+                          "launches": read_counts()}
+            res[label]["max_reserved_gib"] = torch.cuda.max_memory_reserved(dev) / 2**30
+            print(f"rank {rank} {label}: rows {lo}:{hi}, init {init_s:.3f} s, " + "; ".join(
+                f"update {u + 1} {r['wall_s']:.3f} s = {r['env_steps_per_s']:.1f} env-steps/s"
+                for u, r in enumerate(ups)) + f"; at most {res[label]['max_reserved_gib']:.2f}"
+                " GiB reserved", flush=True)
+        t0 = time.perf_counter()
+        checkpoint.save(os.path.join(out_dir, "pixels_ckpt"), ts, world)
+        res["pixels"]["checkpoint_s"] = time.perf_counter() - t0
+        torch.save({"env_state": [x.cpu() for x in tree_leaves(ts.env_state)],
+                    "frames": ts.frames.cpu()}, os.path.join(out_dir, f"rows{rank}.pt"))
+    finally:
+        mesh.shutdown()
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    return 0
+
+
+def two_rank_phase(smi: str, dev: torch.device, state_reference: list) -> dict:
+    """Phase 32: DP_RANKS processes sharing the card over gloo (rank_drill).
+    Each rank's counts equal its steps and frames; the learner hashes are
+    equal across ranks after every update; the state recipe's update 1
+    matches the one-process run of phase 31 within DP_METRIC_TOL; the
+    two-rank checkpoint, restored here, equals the ranks' rows joined and
+    hashes as the ranks' learner."""
+    if os.path.isdir(DP_DIR):
+        for name in os.listdir(DP_DIR):
+            if name.startswith(("rank", "rows", "pixels_ckpt")):
+                os.remove(os.path.join(DP_DIR, name))
+    os.makedirs(DP_DIR, exist_ok=True)
+    phase(f"this process holds {torch.cuda.memory_reserved(dev) / 2**30:.2f} GiB of the card "
+          f"reserved as the ranks start; the checkout's disk has "
+          f"{shutil.disk_usage(DP_DIR).free / 2**30:.2f} GiB free")
+    for attempt in (1, 2):
+        port = mesh.free_port()
+        codes, outs, wall = mesh.run_processes(
+            [[sys.executable, os.path.abspath(__file__), "--rank-drill", str(r), str(port),
+              DP_DIR] for r in range(DP_RANKS)], cwd=os.path.dirname(os.path.abspath(__file__)),
+            timeout=DP_TIMEOUT, logs=[os.path.join(DP_DIR, f"rank{r}.log")
+                                      for r in range(DP_RANKS)])
+        for r, (code, out) in enumerate(zip(codes, outs)):
+            for line in out.strip().splitlines()[-12:]:
+                phase(f"rank {r} | {line}")
+        failed = [r for r, code in enumerate(codes) if code != 0]
+        for r in failed:
+            # The end of a failed rank's log goes to stderr as well, beside
+            # the traceback below, where a reader of the error stream alone
+            # sees it.
+            print(f"[chip_smoke] attempt {attempt}: rank {r} exited {codes[r]} with "
+                  f"{shutil.disk_usage(DP_DIR).free / 2**30:.2f} GiB free on the checkout's "
+                  "disk; the end of its output:\n"
+                  + "\n".join(outs[r].strip().splitlines()[-40:]), file=sys.stderr, flush=True)
+        # One relaunch on a fresh port, as the tests' launcher does, and only
+        # when every failed rank died of the sockets or the rendezvous: a
+        # failed check of the port's own ends the phase.
+        if not failed or attempt == 2 or not all(transport_failure(outs[r]) for r in failed):
+            break
+        phase(f"ranks {failed} lost their connection (attempt 1, {wall:.1f} s): relaunching "
+              "once on a fresh port")
+    if failed:
+        raise AssertionError(f"ranks {failed} exited {[codes[r] for r in failed]} "
+                             f"(phase 32, attempt {attempt}, {wall:.1f} s)")
+    res = [json.load(open(os.path.join(DP_DIR, f"rank{r}.json"))) for r in range(DP_RANKS)]
+    pcfg_s, pcfg_p = state_recipe()[1], pixel_recipe()[1]
+    for r in res:
+        if r["backend"] != "gloo":
+            raise AssertionError(f"ranks sharing a card chose {r['backend']}, not gloo")
+        check_counts(f"rank {r['rank']} state", r["state"]["launches"],
+                     pcfg_s.rollout_len * pcfg_s.action_repeat + 1, 0, 1)
+        check_counts(f"rank {r['rank']} pixels", r["pixels"]["launches"],
+                     DP_UPDATES * (pcfg_p.rollout_len * pcfg_p.action_repeat + 1),
+                     DP_UPDATES * (pcfg_p.rollout_len + 1), 2)
+    for label in ("state", "pixels"):
+        for u in range(len(res[0][label]["updates"])):
+            ups = [r[label]["updates"][u] for r in res]
+            if len({x["hash"] for x in ups}) != 1 or any(x["metrics"] != ups[0]["metrics"]
+                                                         for x in ups):
+                raise AssertionError(f"{label} update {u + 1}: the ranks differ")
+    state_misses = metric_misses(res[0]["state"]["updates"][0]["metrics"],
+                                 state_reference[0]["metrics"])
+    back = checkpoint.restore(os.path.join(DP_DIR, "pixels_ckpt"), device=dev)
+    rows = [torch.load(os.path.join(DP_DIR, f"rows{r}.pt"), weights_only=True)
+            for r in range(DP_RANKS)]
+    joined = all(torch.equal(leaf.cpu(), torch.cat([part["env_state"][i] for part in rows]))
+                 for i, leaf in enumerate(tree_leaves(back.env_state)))
+    joined = joined and torch.equal(back.frames.cpu(), torch.cat([p["frames"] for p in rows]))
+    hash_same = mesh.tensor_hash(learner_tensors(back)) == res[0]["pixels"]["updates"][-1]["hash"]
+    remove_checkpoint(os.path.join(DP_DIR, "pixels_ckpt"))
+    for r in range(DP_RANKS):
+        os.remove(os.path.join(DP_DIR, f"rows{r}.pt"))
+    phase(f"two ranks on one card ({res[0]['backend']}): {wall:.1f} s with the processes' "
+          f"start (attempt {attempt}); state update 1 against the one-process run: metrics past "
+          f"{DP_METRIC_TOL}: {state_misses}; the checkpoint restored here equals the rows "
+          f"joined: {joined}, the learner's hash the ranks': {hash_same}; " + "; ".join(
+              f"rank {r['rank']} rows {r[k]['rows']} {k} " + ", ".join(
+                  f"{x['env_steps_per_s']:.1f}" for x in r[k]["updates"]) + " env-steps/s"
+              for r in res for k in ("state", "pixels")) + f" on {smi}")
+    if state_misses or not joined or not hash_same:
+        raise AssertionError("phase 32: the two ranks do not compute the one-process step, "
+                             "or their checkpoint does not hold their rows")
+    return {"wall_s": wall, "attempts": attempt, "ranks": res,
+            "state_update1_misses": state_misses,
+            "checkpoint_rows_joined": joined, "checkpoint_hash_equal": hash_same}
+
+
+def demo_phase(dev: torch.device) -> dict:
+    """Phase 33: ``demo.main`` for DEMO_STEPS steps on the card at N = 2
+    (the track follower), writing a GIF; counts zeroed before it: one K2 and
+    one K4/K5 per step and for the reset's spawn tick, one K6 per frame
+    (the reset's and each step's), nothing else."""
+    from PIL import Image
+
+    out = os.path.join(DP_DIR, "demo.gif")
+    zero_counts()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        total = demo.main(["--steps", str(DEMO_STEPS), "--out", out, "--num-cars", "2"])
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    for line in buf.getvalue().strip().splitlines():
+        phase(f"demo.py | {line}")
+    check_counts("demo", counts, DEMO_STEPS + 1, DEMO_STEPS + 1, 2)
+    with Image.open(out) as gif:
+        frames, size = gif.n_frames, gif.size
+    phase(f"demo.py: {DEMO_STEPS} steps in {wall:.3f} s (reset and GIF included); returns "
+          f"{[float(x) for x in total]}; GIF {frames} frames of {size}; launches {counts}")
+    if frames < 2 or not np.isfinite(total).all():
+        raise AssertionError(f"demo: {frames} GIF frames, returns {total}")
+    return {"wall_s": wall, "returns": [float(x) for x in total], "gif_frames": frames,
+            "launches": counts}
+
+
 def report(name: str, source: str, replaces: str, launches: int, max_abs_err: float,
            max_err_over_bar: float, times: dict, **extra) -> dict:
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -2272,7 +2594,7 @@ def report(name: str, source: str, replaces: str, launches: int, max_abs_err: fl
 
 def main() -> int:
     start = time.perf_counter()
-    phase("1/31 device")
+    phase("1/34 device")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs the port on the card only",
               file=sys.stderr)
@@ -2286,7 +2608,7 @@ def main() -> int:
     phase(f"device {kind} | nvidia-smi: {smi} | torch {torch.__version__} "
           f"cuda {torch.version.cuda} | python {sys.version.split()[0]}")
 
-    phase("2/31 build (one nvcc per kernel, started together)")
+    phase("2/34 build (one nvcc per kernel, started together)")
     t0 = time.perf_counter()
     kernels = (fused_world.KERNEL, fused_world.CONTACT_KERNEL, fused_world.SOLVE_KERNEL,
                track_engine.KERNEL, pixels.KERNEL)
@@ -2310,7 +2632,7 @@ def main() -> int:
     cfg = EnvConfig(num_agents=1, use_random_direction=False)
     actions = cycled_actions(E, cfg.num_agents, dev)
 
-    phase(f"3/31 K1 vs plain at E={E} after 20 steps")
+    phase(f"3/34 K1 vs plain at E={E} after 20 steps")
     state = penv.reset_batch(cfg, SEEDS, E)
     for t in range(20):
         state, _, _ = penv.step(cfg, state, actions[t % 8])
@@ -2334,7 +2656,7 @@ def main() -> int:
           f"{KERNEL_TIMING_LAUNCHES} launches); "
           f"{ptx['K1'].get('joints_island', {}).get('registers')} registers")
 
-    phase(f"4/31 small input: {len(SMALL_SEEDS)} envs x {SMALL_STEPS} steps, card vs CPU")
+    phase(f"4/34 small input: {len(SMALL_SEEDS)} envs x {SMALL_STEPS} steps, card vs CPU")
     small = {d: penv.reset_batch(cfg, SMALL_SEEDS, len(SMALL_SEEDS), device=d)
              for d in ("cuda", "cpu")}
     returns = {d: 0.0 for d in small}
@@ -2349,7 +2671,7 @@ def main() -> int:
     if not (ret_dev <= 2e-5 and pos_dev <= 1e-3):
         raise AssertionError("small-input run on the card disagrees with the CPU path")
 
-    phase(f"5/31 N=1 main path: reset_batch E={E} ({len(SEEDS)} tracks) + {WARMUP} "
+    phase(f"5/34 N=1 main path: reset_batch E={E} ({len(SEEDS)} tracks) + {WARMUP} "
           f"warm-up + {T} steps")
     run1 = main_path(cfg, actions, "N=1", smi)
     times1 = kernel_times(cfg, run1, actions)
@@ -2361,7 +2683,7 @@ def main() -> int:
 
     cfg2 = EnvConfig(num_agents=2, use_random_direction=False)
     actions2 = cycled_actions(E, cfg2.num_agents, dev)
-    phase(f"6/31 K2 vs plain at N=2, E={E}, driven until {NEAR_SHARE:.0%} of envs are near")
+    phase(f"6/34 K2 vs plain at N=2, E={E}, driven until {NEAR_SHARE:.0%} of envs are near")
     state = penv.reset_batch(cfg2, SEEDS, E)
     for t in range(NEAR_MAX_STEPS + 1):
         pre = apply_controls(state.cars, actions2[t % 8])
@@ -2423,7 +2745,7 @@ def main() -> int:
         raise AssertionError(f"K2 vs plain (all-near): {id_near} envs' ids, {skid_near} skid "
                              f"flags differ")
 
-    phase("7/31 rear-end ram (N=4, E=1): K2 vs plain at the first step with contact")
+    phase("7/34 rear-end ram (N=4, E=1): K2 vs plain at the first step with contact")
     ram_cfg, ram, ram_act, ram_t = ram_state(dev)
     ram_pre = apply_controls(ram.cars, ram_act)
     k_ram = fused_world.island_step(ram_pre, ram.wheel_on_road, ram.contacts)
@@ -2439,7 +2761,7 @@ def main() -> int:
     if ram_id_miss:
         raise AssertionError("ram: K2's manifold ids differ from the plain version's")
 
-    phase(f"7/31 (cont.) N=4, E={N4_E}, driven until {NEAR_SHARE:.0%} of envs are near: K2 vs "
+    phase(f"7/34 (cont.) N=4, E={N4_E}, driven until {NEAR_SHARE:.0%} of envs are near: K2 vs "
           f"plain, the far pass, and K2 beside K3")
     cfg4 = EnvConfig(num_agents=4, use_random_direction=False)
     actions4 = cycled_actions(N4_E, 4, dev)
@@ -2472,7 +2794,7 @@ def main() -> int:
                                                  pile[2], "K2 vs plain (N=4, > 32 live rows)")
     phase(f"> 32 live rows: envs whose manifold ids differ {id_pile}")
 
-    phase("8/31 determinism: two K2 launches on phase 6's input")
+    phase("8/34 determinism: two K2 launches on phase 6's input")
     fin, ls_in = fused_world.pack_inputs(pre, state.wheel_on_road)
     a = fused_world.launch_contacts(fin, ls_in, cs_pre, cfg2.num_agents)
     b = fused_world.launch_contacts(fin, ls_in, cs_pre, cfg2.num_agents)
@@ -2493,19 +2815,19 @@ def main() -> int:
     # K3's path: world_step_batched on the card, its count set to 0 here and
     # read after phase 11; each call below launches K3 once.
     fused_world.world_step_batched.launches = 0
-    phase(f"9/31 K3 vs plain at N=2, E={E}, full {cfg2.velocity_iters}/"
+    phase(f"9/34 K3 vs plain at N=2, E={E}, full {cfg2.velocity_iters}/"
           f"{cfg2.position_iters}, on phase 6's input (plain tire model, Collide, make_bundle)")
     solve2 = solve_inputs(pre, state.wheel_on_road, cs_pre, 2)
     devs3 = compare_solve(solve2, 2, "K3 vs plain (N=2)")
 
-    phase("10/31 K3 vs plain on phase 7's ram (N=4, E=1) and at N=1, E=4096 (no bundle)")
+    phase("10/34 K3 vs plain on phase 7's ram (N=4, E=1) and at N=1, E=4096 (no bundle)")
     devs3.update({f"ram {f}": v for f, v in compare_solve(
         solve_inputs(ram_pre, ram.wheel_on_road, ram.contacts, 4), 4,
         "K3 vs plain (ram, N=4)").items()})
     devs3.update({f"N=1 {f}": v for f, v in compare_solve(
         solve_inputs(pre1, road1, None, 1), 1, "K3 vs plain (N=1)").items()})
 
-    phase("11/31 K2 vs plain Collide + K3 on phase 6's input")
+    phase("11/34 K2 vs plain Collide + K3 on phase 6's input")
     post2, _, _, _, skid2, man2 = solve2
     k3_cars, (k3_ni, k3_ti) = fused_world.world_step_batched(*solve2[:4], 2)
     live_list_check(solve2[3], E, "K3 on phase 6's input")
@@ -2522,7 +2844,7 @@ def main() -> int:
     if k3_launches != 4:
         raise AssertionError(f"K3 launched {k3_launches} times on its path, expected 4")
 
-    phase(f"12/31 K3 determinism and times at N=2, E={E} on phase 6's input, beside K2 on {smi}")
+    phase(f"12/34 K3 determinism and times at N=2, E={E} on phase 6's input, beside K2 on {smi}")
     same3 = []
     for solve_in in (solve2, solve_inputs(*near_in, 2)):
         fin3, ls3 = fused_world.pack_solve_inputs(*solve_in[:3])
@@ -2543,7 +2865,7 @@ def main() -> int:
         phase(f"K3 on the {name} input:")
         times3_more[name] = solve_times(*args)
 
-    phase(f"13/31 N=2 main path: reset_batch E={E} ({len(SEEDS)} tracks) + {WARMUP} "
+    phase(f"13/34 N=2 main path: reset_batch E={E} ({len(SEEDS)} tracks) + {WARMUP} "
           f"warm-up + {T} steps")
     run2 = main_path(cfg2, actions2, "N=2", smi)
     times2 = kernel_times(cfg2, run2, actions2)
@@ -2580,7 +2902,7 @@ def main() -> int:
                                                       for _, rv, rs in devs_pile.values())},
                 ptxas=ptx["K2"])
 
-    phase(f"14/31 K4/K5 vs plain at E={E}, N=1 and N=2, and E={N4_E}, N=4: a stepped state, "
+    phase(f"14/34 K4/K5 vs plain at E={E}, N=1 and N=2, and E={N4_E}, N=4: a stepped state, "
           f"a spawn tick, lifted wheels, and the cull's edges (on-road, seam, kerb, off-road, "
           f"self-approach, wheels-only); the cull's probes (wheels only, origins only)")
     checks = {**track_phase(cfg, actions), **track_phase(cfg2, actions2),
@@ -2596,24 +2918,24 @@ def main() -> int:
                              "cand_mean": r["cand_mean"], "cand_max": r["cand_max"]}
                          for k, r in checks.items()})
 
-    phase(f"15/31 state-PPO rollout: E={E}, N={ROLLOUT_N}, pool of {len(POOL_SEEDS)} host "
+    phase(f"15/34 state-PPO rollout: E={E}, N={ROLLOUT_N}, pool of {len(POOL_SEEDS)} host "
           f"tracks, chunks of {ROLLOUT_CHUNK} steps, past the time limit")
     rollout = rollout_phase(smi, dev)
 
-    phase("16/31 K6 vs plain: N=2 spawn tick, steady, mid zoom, camera jitter, mixed and "
+    phase("16/34 K6 vs plain: N=2 spawn tick, steady, mid zoom, camera jitter, mixed and "
           "backward at E=4096; N=1 CW; N=4 ego colour; the golden frames")
     pool = penv.make_host_track_pool(EnvConfig(num_agents=2), POOL_SEEDS, device=dev)
     t16 = time.perf_counter()
     px_checks = pixel_checks(dev, pool)
     phase(f"phase 16 took {time.perf_counter() - t16:.1f} s")
 
-    phase(f"17/31 pixel main path: reset_batch E={E}, N=2 + {WARMUP} warm-up + {T} steps, a "
+    phase(f"17/34 pixel main path: reset_batch E={E}, N=2 + {WARMUP} warm-up + {T} steps, a "
           f"frame after the reset and after every step")
     t17 = time.perf_counter()
     px_run = pixel_main_path(smi, dev)
     phase(f"phase 17 took {time.perf_counter() - t17:.1f} s")
 
-    phase(f"18/31 pixel-PPO env side: E={PPO_E}, N=2, {PPO_CHUNKS} chunks of {PPO_DECISIONS} "
+    phase(f"18/34 pixel-PPO env side: E={PPO_E}, N=2, {PPO_CHUNKS} chunks of {PPO_DECISIONS} "
           f"decisions x {PPO_REPEAT} steps, autoreset, past the time limit")
     px_rollout = pixel_rollout_phase(smi, dev, pool)
     learner = learner_phases(smi, dev)
@@ -2661,22 +2983,22 @@ def main() -> int:
                                                       "k2_ms_same_input", "live_envs")}
                              for name, t in times3_more.items()},
                 ptxas=ptx["K3"])
-    phase("23/31 the Gym facade on the card: MultiCarRacing-v0 and CarRacing-v0, "
+    phase("23/34 the Gym facade on the card: MultiCarRacing-v0 and CarRacing-v0, "
           f"{FACADE_STEPS} steps each")
     t23 = time.perf_counter()
     facade = {env_id: facade_phase(env_id, smi, dev)
               for env_id in ("MultiCarRacing-v0", "CarRacing-v0")}
     seconds = {"23": time.perf_counter() - t23}
-    phase("24/31 the 600x400 rgb_array painter on the card: the golden frame, and a frame "
+    phase("24/34 the 600x400 rgb_array painter on the card: the golden frame, and a frame "
           "after hard braking")
     t = time.perf_counter()
     facade["rgb_array"] = rgb_array_phase(smi, dev)
     seconds["24"] = time.perf_counter() - t
-    phase("25/31 Monitor: one short episode")
+    phase("25/34 Monitor: one short episode")
     t = time.perf_counter()
     facade["monitor"] = monitor_phase(dev)
     seconds["25"] = time.perf_counter() - t
-    phase("26/31 python -m multi_car_racing_tpu_torch.train: 3 updates, an evaluation, "
+    phase("26/34 python -m multi_car_racing_tpu_torch.train: 3 updates, an evaluation, "
           "a checkpoint, then --resume")
     t = time.perf_counter()
     facade["train_cli"] = train_cli_phase()
@@ -2684,27 +3006,43 @@ def main() -> int:
     facade["seconds"] = seconds
     phase(f"phases 23-26 took {time.perf_counter() - t23:.1f} s: " + ", ".join(
         f"phase {k} {v:.1f} s" for k, v in seconds.items()))
-    phase(f"27/31 tracks generated on the card: a checked pool of {GEN_POOL}, device_reset at "
+    phase(f"27/34 tracks generated on the card: a checked pool of {GEN_POOL}, device_reset at "
           f"E={E}, N=2, and one attempt on the card against the CPU on the same uniforms")
     t = time.perf_counter()
     generation = generation_phase(smi, dev)
     seconds = {"27": time.perf_counter() - t}
-    phase(f"28/31 VectorMultiCarRacing on the card: E={E}, N=2, obs=pixels, time limit "
+    phase(f"28/34 VectorMultiCarRacing on the card: E={E}, N=2, obs=pixels, time limit "
           f"{VEC_LIMIT}, {VEC_STEPS} steps")
     t = time.perf_counter()
     vector = {"pixels": vector_phase("pixels", 2, smi, dev)}
     seconds["28"] = time.perf_counter() - t
-    phase(f"29/31 VectorMultiCarRacing on the card: obs=state at N=1 (K1), obs=none at N=2")
+    phase(f"29/34 VectorMultiCarRacing on the card: obs=state at N=1 (K1), obs=none at N=2")
     t = time.perf_counter()
     vector["state"] = vector_phase("state", 1, smi, dev)
     vector["none"] = vector_phase("none", 2, smi, dev)
     seconds["29"] = time.perf_counter() - t
-    phase(f"30/31 K2 and K3 past shared memory: the scratch layout at N={NARROW_NS} and "
+    phase(f"30/34 K2 and K3 past shared memory: the scratch layout at N={NARROW_NS} and "
           f"N={WIDE_NS}, E={WIDE_E}, against the plain versions")
     t = time.perf_counter()
     wide = wide_contact_phase(dev, smi)
     seconds["30"] = time.perf_counter() - t
     phase("phases 27-30 took " + ", ".join(f"phase {k} {v:.1f} s" for k, v in seconds.items()))
+    phase(f"31/34 a world of one over NCCL in this process: the state recipe, {DP_UPDATES} "
+          f"updates, against the same updates without a world")
+    t = time.perf_counter()
+    dp = {"world_of_one": world_of_one_phase(smi, dev)}
+    seconds = {"31": time.perf_counter() - t}
+    phase(f"32/34 {DP_RANKS} ranks sharing the card over gloo (processes): the state recipe "
+          f"(1 update) and the pixel recipe ({DP_UPDATES} updates, a checkpoint)")
+    t = time.perf_counter()
+    dp["two_ranks"] = two_rank_phase(smi, dev, dp["world_of_one"]["runs"]["one process"])
+    seconds["32"] = time.perf_counter() - t
+    phase(f"33/34 demo.py on the card: {DEMO_STEPS} steps at N=2, a GIF")
+    t = time.perf_counter()
+    dp["demo"] = demo_phase(dev)
+    seconds["33"] = time.perf_counter() - t
+    dp["seconds"] = seconds
+    phase("phases 31-33 took " + ", ".join(f"phase {k} {v:.1f} s" for k, v in seconds.items()))
     for k, name in ((k2, "k2"), (k3, "k3")):
         k["past_shared_memory"] = {
             lab: {"ms": r[name]["ms"], "bound_ms": r[name]["bound_ms"],
@@ -2712,11 +3050,12 @@ def main() -> int:
                   "warp_bytes": r["warp_bytes"], "max_err_over_bar": max(
                       v for key, v in r["max_err_over_bar"].items() if key.startswith(name))}
             for lab, r in wide.items() if "k2" in r}
-    phase(f"31/31 report: every phase passed in {time.perf_counter() - start:.1f} s")
+    phase(f"34/34 report: every phase passed in {time.perf_counter() - start:.1f} s")
     print(json.dumps({"learner": learner}), flush=True)
     print(json.dumps({"facade": facade}), flush=True)
     print(json.dumps({"generation": generation, "vector": vector,
                       "past_shared_memory": wide}), flush=True)
+    print(json.dumps({"data_parallel": dp}), flush=True)
     print(json.dumps({"kernels": [k1, k2, k3, k45, k6], "rollout": rollout,
                       "pixel_main_path": {k: v for k, v in px_run.items()},
                       "pixel_rollout": px_rollout}), flush=True)
@@ -2728,4 +3067,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--rank-drill"]:
+        sys.exit(rank_drill(sys.argv[2:]))
     sys.exit(main())

@@ -94,8 +94,8 @@ VP, CI, CF = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
 # Each launch function's arguments, in this checkout and in its parent
-# (db346be), whose K2 and K3 took no scratch buffer (pointer and slots)
-# before the stream. Only these two are kept: a comparison with an older
+# (19e86c4, the same: K2 and K3 take a scratch buffer, pointer and slots,
+# before the stream). Only these two are kept: a comparison with an older
 # commit needs that commit's compare_parent.py.
 ARGTYPES = {
     "joints_island": [VP] * 5 + [CI] * 3 + [VP],
@@ -103,8 +103,7 @@ ARGTYPES = {
     "solve_island": [VP] * 17 + [CI] * 7 + [VP, CI, VP],
     "track_pass": [VP] * 20 + [CI] * 3 + [CF] * 6 + [VP],
 }
-PARENT_ARGTYPES = dict(ARGTYPES, contact_island=[VP] * 15 + [CI] * 7 + [VP],
-                       solve_island=[VP] * 17 + [CI] * 7 + [VP])
+PARENT_ARGTYPES = dict(ARGTYPES)
 
 
 def build(tag: str, src_dir: str, name: str, argtypes: dict):

@@ -60,30 +60,37 @@ in and out, tracks generated on the card:
     obs = venv.reset()                                   # (4096, 2, 96, 96, 3)
     obs, rewards, dones, info = venv.step(actions)       # (4096, 2, 3)
 
+Training scales over processes, one per card or several sharing one
+(``parallel.mesh``: each rank steps its rows of the env batch, and the
+ranks compute the one-process update on the global batch), and the demo
+drives the facade with a track follower or from the keyboard in a terminal:
+
+    # torchrun --nproc-per-node 4 -m multi_car_racing_tpu_torch.train -- --distributed
+    # python -m multi_car_racing_tpu_torch.demo --steps 400 --out mcr.gif
+    # python -m multi_car_racing_tpu_torch.demo --interactive
+
 Entry points run on CUDA unless the caller passes ``device="cpu"``, where
 every kernel is replaced by its plain PyTorch version. Kernels build with
 nvcc at first use; importing the package builds nothing.
-
-Not ported yet: multi-GPU training, the demo and terminal tools.
 """
 
-# ``train`` (the command line, ``python -m multi_car_racing_tpu_torch.train``)
-# loads on first access (``__getattr__`` below), so that running it as a
-# module finds it unloaded.
+# The command lines (``train``, ``demo``, and ``tui`` behind ``demo
+# --interactive``) load on first access (``__getattr__`` below), so that
+# running one as a module finds it unloaded.
 from . import (checkpoint, config, convert, env, gym_api, learner, metrics, monitor, obs,
-               render, window)
+               parallel, render, window)
 from .config import EnvConfig
 from .gym_api import MultiCarRacing, TimeLimit, VectorMultiCarRacing, make
 
 __version__ = "0.1.0"
-__all__ = ["checkpoint", "config", "convert", "env", "gym_api", "learner", "metrics", "monitor",
-           "obs", "render", "train", "window", "EnvConfig", "MultiCarRacing", "TimeLimit",
-           "VectorMultiCarRacing", "make"]
+__all__ = ["checkpoint", "config", "convert", "demo", "env", "gym_api", "learner", "metrics",
+           "monitor", "obs", "parallel", "render", "train", "tui", "window", "EnvConfig",
+           "MultiCarRacing", "TimeLimit", "VectorMultiCarRacing", "make"]
 
 
 def __getattr__(name: str):
-    if name == "train":
+    if name in ("demo", "train", "tui"):
         import importlib
 
-        return importlib.import_module(".train", __name__)
+        return importlib.import_module(f".{name}", __name__)
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -38,6 +38,9 @@ FRAME_CHANNELS = 3
 # (out channels, kernel, stride) of the Nature CNN's three convolutions.
 CONVS = ((32, 8, 4), (64, 4, 2), (64, 3, 1))
 PIXEL_DENSE = 512
+# The pixel torso's compute dtype, JAX's. Set to float32, it takes bfloat16's
+# rounding out of a comparison of two batch layouts (tests/test_torch_ppo.py).
+PIXEL_COMPUTE_DTYPE = torch.bfloat16
 # Standard deviation of a unit normal truncated to [-2, 2]: lecun_normal
 # divides by it so that the truncated draw has the variance asked for.
 _TRUNC_STD = 0.87962566103423978
@@ -108,7 +111,7 @@ class PixelTorso(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         # x: (..., 96, 96, C) uint8, channels last.
         lead = x.shape[:-3]
-        bf = torch.bfloat16
+        bf = PIXEL_COMPUTE_DTYPE
         h = x.reshape((-1,) + tuple(x.shape[-3:])).to(bf) / 255.0   # cast, then divide
         h = h.permute(0, 3, 1, 2)                                    # NCHW for conv2d
         for conv, (_, _, s), pad in zip(self.convs, CONVS, PADDINGS):

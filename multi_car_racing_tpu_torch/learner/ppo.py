@@ -16,14 +16,29 @@ written out (``ClippedAdam``). A minibatch whose loss or gradient norm is
 not finite, or that comes after the KL early stop, leaves the parameters
 and the optimizer state untouched, selected on the card as in JAX.
 
-Not ported here: the mesh sharding (data parallelism over chips) and the
-``MCR_PPO_DEBUG_STATS`` per-minibatch dump.
+Data parallelism (``world``, a ``parallel.mesh.World``), as the JAX
+package's mesh: each rank holds a contiguous range of the env rows and
+computes what one process computes on the global batch. Every rank draws
+the global numbers from the same generator state (the action noise, each
+epoch's permutation of all B samples, the autoreset's draws) and keeps its
+rows; each global minibatch is the members of the permutation's slice that
+fall in the rank's rows, and the mask sum, the advantage mean and spread,
+the gradients, the statistics, ``obs_rms`` and the metrics are summed (or
+maxed) over the ranks. So every rank applies the same updates, and the
+parameters, the optimizer and the generator stay identical. Without a
+world (or in one without a process group) no collective runs.
+
+With ``MCR_PPO_DEBUG_STATS`` set in the environment, the train step
+returns the unreduced (epochs, minibatches) statistics under JAX's keys
+(``stats_loss``, ``stats_pg``, ``stats_v``, ``stats_dlogp``, ``stats_kl``,
+``stats_gn``) in place of the metrics, for NaN forensics.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import os
 from typing import Any
 
 import numpy as np
@@ -32,7 +47,8 @@ import torch
 from .. import config as C
 from .. import env as penv
 from .. import obs as pobs
-from ..util import resolve_device
+from ..parallel.mesh import World
+from ..util import resolve_device, tree_map
 from .networks import ActorCritic
 
 
@@ -87,18 +103,22 @@ def _rms_normalize(rms: dict, obs: torch.Tensor) -> torch.Tensor:
     return torch.clamp((obs - rms["mean"]) / torch.sqrt(rms["var"] + 1e-8), -10.0, 10.0)
 
 
-def _rms_update(rms: dict, batch: torch.Tensor, mask: torch.Tensor | None = None) -> dict:
+def _rms_update(rms: dict, batch: torch.Tensor, mask: torch.Tensor | None = None,
+                world: World = World()) -> dict:
     """Chan et al. parallel-variance merge of a new batch (..., D).
 
     ``mask`` (batch.shape[:-1]) excludes samples: masked rows are zeroed
-    (they can be NaN), and an all-masked batch leaves ``rms`` as it is."""
+    (they can be NaN), and an all-masked batch leaves ``rms`` as it is.
+    With a mask, the batch is every rank's of ``world``: its masked count,
+    mean and variance are summed over the ranks."""
     x = batch.reshape(-1, batch.shape[-1]).float()
     if mask is not None:
         mw = mask.reshape(-1).float()[:, None]
         x = torch.where(mw > 0, x, 0.0)
-        bc = torch.clamp(mw.sum(), min=1.0)
-        bm = (x * mw).sum(0) / bc
-        bv = (torch.square(x - bm) * mw).sum(0) / bc
+        count = world.sum(mw.sum())
+        bc = torch.clamp(count, min=1.0)
+        bm = world.sum((x * mw).sum(0)) / bc
+        bv = world.sum((torch.square(x - bm) * mw).sum(0)) / bc
     else:
         bc = torch.tensor(float(x.shape[0]), device=x.device)
         bm, bv = x.mean(0), x.var(0, unbiased=False)
@@ -108,7 +128,7 @@ def _rms_update(rms: dict, batch: torch.Tensor, mask: torch.Tensor | None = None
     m2 = rms["var"] * rms["count"] + bv * bc + torch.square(delta) * rms["count"] * bc / tot
     merged = dict(mean=new_mean, var=m2 / tot, count=tot)
     if mask is not None:
-        keep = mw.sum() > 0
+        keep = count > 0
         merged = {k: torch.where(keep, merged[k], rms[k]) for k in merged}
     return merged
 
@@ -280,7 +300,7 @@ def derived_seeds(seed: int, count: int, stream: int) -> list[int]:
 
 
 def init_train_state(env_cfg: C.EnvConfig, ppo_cfg: PPOConfig, seed: int,
-                     device=None) -> TrainState:
+                     device=None, world: World = World()) -> TrainState:
     """A fresh learner on ``device`` (default CUDA).
 
     As in the JAX package (``ppo.py:227-232``), the tracks are generated on
@@ -289,16 +309,26 @@ def init_train_state(env_cfg: C.EnvConfig, ppo_cfg: PPOConfig, seed: int,
     (``env.device_reset``), both from a generator seeded from ``seed``
     (``derived_seeds`` stream 0). The state's own generator, seeded by
     ``seed``, draws the autoreset episodes. JAX draws with threefry: the
-    distributions agree, the streams do not."""
+    distributions agree, the streams do not.
+
+    Each rank of ``world`` generates the pool and all ``num_envs`` first
+    episodes from the same seed and keeps its rows, as JAX's processes each
+    hold their shard of one global reset; the network, seeded on the CPU,
+    is the same on every rank (checked by a hash of its parameters)."""
     dev = resolve_device(device)
     generator = torch.Generator(device=dev).manual_seed(seed)
     tracks = torch.Generator(device=dev).manual_seed(derived_seeds(seed, 1, 0)[0])
     pool = penv.make_track_pool_checked(env_cfg, tracks, ppo_cfg.pool_size)
     env_state = penv.device_reset(env_cfg, tracks, ppo_cfg.num_envs)
+    if world.distributed:
+        lo, hi = world.rows(ppo_cfg.num_envs)
+        env_state = tree_map(lambda x: x[lo:hi].clone(), env_state)
     dummy_obs = _observe(env_cfg, ppo_cfg, env_state)
     net = ActorCritic(obs_type=ppo_cfg.obs_type, width=ppo_cfg.width,
                       frame_stack=ppo_cfg.frame_stack,
                       generator=torch.Generator().manual_seed(seed)).to(dev)
+    if world.distributed:
+        world.check_replicated(net.parameters(), "init_train_state: the network")
     use_rms = ppo_cfg.normalize_obs and ppo_cfg.obs_type == "state"
     return TrainState(
         net=net, opt=ClippedAdam(net.parameters(), ppo_cfg), env_state=env_state, pool=pool,
@@ -308,23 +338,27 @@ def init_train_state(env_cfg: C.EnvConfig, ppo_cfg: PPOConfig, seed: int,
     )
 
 
-def make_train_step(env_cfg: C.EnvConfig, ppo_cfg: PPOConfig):
+def make_train_step(env_cfg: C.EnvConfig, ppo_cfg: PPOConfig, world: World = World()):
     """Returns ``train_step(ts, draws=None) -> (ts, metrics)``, metrics a dict
-    of 0-d tensors on the state's device.
+    of 0-d tensors on the state's device, the same on every rank of
+    ``world`` (whose ``ts`` holds its rows of the ``num_envs`` envs).
 
     ``draws`` replaces the state's generator as the source of the rollout's
     action noise (``draws["noise"]``, (T, E, N, 3) standard normals, one
-    (E, N, 3) per policy step) and of each epoch's permutation of the batch
-    (``draws["perm"]``, (epochs, B) int64); the autoreset draws still come
-    from the generator. On CUDA, ``train_step.marks`` holds the last call's
-    stage-boundary events (read by ``stage_ms``)."""
+    (E, N, 3) per policy step, all E envs on every rank) and of each epoch's
+    permutation of the batch (``draws["perm"]``, (epochs, B) int64); the
+    autoreset draws still come from the generator. On CUDA,
+    ``train_step.marks`` holds the last call's stage-boundary events (read
+    by ``stage_ms``)."""
     if ppo_cfg.action_repeat < 1:
         raise ValueError("action_repeat must be >= 1")
-    T, E, N = ppo_cfg.rollout_len, ppo_cfg.num_envs, env_cfg.num_agents
+    T, E_all, N = ppo_cfg.rollout_len, ppo_cfg.num_envs, env_cfg.num_agents
+    lo, hi = world.rows(E_all)
+    E = hi - lo                   # this rank's env rows
     R = ppo_cfg.action_repeat
     max_steps = env_cfg.max_episode_steps
     use_rms = ppo_cfg.normalize_obs and ppo_cfg.obs_type == "state"
-    B = T * E * N
+    B = T * E_all * N             # the global batch
     mb = B // ppo_cfg.minibatches
     grass_cost, skip_cost = ppo_cfg.train_grass_cost, ppo_cfg.train_skip_cost
 
@@ -354,9 +388,22 @@ def make_train_step(env_cfg: C.EnvConfig, ppo_cfg: PPOConfig):
     def phi(es):
         return -skip_cost * _skipped_tiles(es)                     # (E, N)
 
-    def loss_fn(net, norm, mbatch):
+    def loss_and_grads(net, norm, mbatch, params):
+        """This rank's share of the global minibatch's loss and its gradients:
+        its samples' terms weighted over the global mask sum, the advantages
+        normalised by the global mean and spread (the data-only sums, joined
+        before the forward, on every rank). Returns (loss, (pg, v_loss,
+        ratio_dev, dlogp_max, approx_kl), grads), each this rank's share (a
+        max for dlogp_max); zeros on a rank that holds none of the samples."""
         live = mbatch["mask"] > 0
-        w = mbatch["mask"] / torch.clamp(mbatch["mask"].sum(), min=1.0)
+        w = mbatch["mask"] / torch.clamp(world.sum(mbatch["mask"].sum()), min=1.0)
+        adv = torch.where(live, mbatch["adv"], 0.0)
+        adv_mu = world.sum(torch.sum(adv * w))
+        adv_sd = torch.sqrt(world.sum(torch.sum(torch.square(adv - adv_mu) * w)))
+        adv = (adv - adv_mu) / (adv_sd + 1e-8)
+        if not live.numel():
+            zero = torch.zeros((), device=live.device)
+            return zero, (zero,) * 5, [torch.zeros_like(p) for p in params]
         # Zero masked inputs, not only their weights: a masked obs can be
         # extreme or NaN, and 0 * inf in a backward is NaN.
         obs_live = live.reshape(live.shape + (1,) * (mbatch["obs"].dim() - 1))
@@ -367,22 +414,50 @@ def make_train_step(env_cfg: C.EnvConfig, ppo_cfg: PPOConfig):
             mean, log_std, mbatch["action"])
         dlogp = torch.where(live, logp - mbatch["logp"], 0.0)
         ratio = torch.exp(dlogp)
-        adv = torch.where(live, mbatch["adv"], 0.0)
-        adv_mu = torch.sum(adv * w)
-        adv_sd = torch.sqrt(torch.sum(torch.square(adv - adv_mu) * w))
-        adv = (adv - adv_mu) / (adv_sd + 1e-8)
         eps = ppo_cfg.clip_eps
         pg = -torch.sum(torch.minimum(ratio * adv, torch.clamp(ratio, 1 - eps, 1 + eps) * adv) * w)
         v_clip = mbatch["value"] + torch.clamp(value - mbatch["value"], -eps, eps)
         v_err = torch.where(live, value - mbatch["ret"], 0.0)
         vc_err = torch.where(live, v_clip - mbatch["ret"], 0.0)
         v_loss = 0.5 * torch.sum(torch.maximum(torch.square(v_err), torch.square(vc_err)) * w)
-        ent = torch.sum(log_std + 0.5 * math.log(2 * math.pi * math.e), dim=-1).mean()
+        ent = torch.sum(log_std + 0.5 * math.log(2 * math.pi * math.e), dim=-1)
+        # The mean over the global minibatch's mb rows: a rank holding them
+        # all takes the mean, one holding some its share of the sum.
+        ent = ent.mean() if ent.shape[0] == mb else ent.sum() / mb
         loss = pg + ppo_cfg.vf_coef * v_loss - ppo_cfg.ent_coef * ent
         # k3 approximate KL: dead samples contribute exactly 0.
         approx_kl = torch.sum((ratio - 1.0 - dlogp) * w)
         return loss, (pg, v_loss, torch.sum(torch.abs(ratio - 1) * w),
-                      torch.max(torch.abs(dlogp)), approx_kl)
+                      torch.max(torch.abs(dlogp)), approx_kl), torch.autograd.grad(loss, params)
+
+    M = ppo_cfg.minibatches
+
+    def minibatch_indices(perm: torch.Tensor) -> list:
+        """Each global minibatch's members among this rank's rows, as indices
+        into its flat (T, E, N) batch, in the permutation's order (one host
+        read an epoch for the member counts)."""
+        if not world.distributed:
+            return [perm[i * mb:(i + 1) * mb] for i in range(M)]
+        p = perm[:M * mb]
+        t, e, n = p // (E_all * N), (p // N) % E_all, p % N
+        own = (e >= lo) & (e < hi)
+        local = ((t * E + (e - lo)) * N + n)[own]
+        return list(torch.split(local, own.view(M, mb).sum(1).tolist()))
+
+    def join_minibatch(loss, aux, grads):
+        """The global minibatch's loss, statistics and gradients: the ranks'
+        shares summed in one all-reduce (dlogp_max maxed in a second). The
+        weights are global, so the sum of the shares' gradients is the
+        gradient of the global loss."""
+        if not world.distributed:
+            return loss, aux, grads
+        pg, v_loss, ratio_dev, dlogp_max, approx_kl = aux
+        shares = torch.stack([loss, pg, v_loss, ratio_dev, approx_kl]).detach()
+        flat = world.sum(torch.cat([g.reshape(-1) for g in grads] + [shares]))
+        parts = torch.split(flat[:-5], [g.numel() for g in grads])
+        grads = [f.view_as(g) for f, g in zip(parts, grads)]
+        loss, pg, v_loss, ratio_dev, approx_kl = flat[-5:]
+        return loss, (pg, v_loss, ratio_dev, world.max(dlogp_max.detach()), approx_kl), grads
 
     def train_step(ts: TrainState, draws: dict | None = None):
         net, gen = ts.net, ts.generator
@@ -416,7 +491,7 @@ def make_train_step(env_cfg: C.EnvConfig, ppo_cfg: PPOConfig):
             obs = _stack_obs(frames, obs_now)
             frames = _push_frames(frames, obs_now)
             noise = (draws["noise"][t] if draws is not None else
-                     torch.randn((E, N, 3), generator=gen, device=dev))
+                     torch.randn((E_all, N, 3), generator=gen, device=dev))[lo:hi]
             with torch.no_grad():
                 a, a_env, logp, value = policy(net, norm(obs), noise)
             if R == 1:
@@ -476,7 +551,7 @@ def make_train_step(env_cfg: C.EnvConfig, ppo_cfg: PPOConfig):
         returns = advs + values
 
         def flat(x):
-            return x.reshape((B,) + x.shape[3:])
+            return x.reshape((T * E * N,) + x.shape[3:])
 
         batch = dict(obs=flat(traj["obs"]), action=flat(traj["action"]),
                      logp=flat(traj["logp"]), value=flat(values), adv=flat(advs),
@@ -495,12 +570,10 @@ def make_train_step(env_cfg: C.EnvConfig, ppo_cfg: PPOConfig):
         stats = []
         for ep in range(ppo_cfg.epochs):
             perm = (draws["perm"][ep] if draws is not None else
-                    torch.randperm(B, generator=gen, device=dev))
-            for i in range(ppo_cfg.minibatches):
-                idx = perm[i * mb:(i + 1) * mb]
-                mbatch = {k: v[idx] for k, v in batch.items()}
-                loss, aux = loss_fn(net, norm, mbatch)
-                grads = torch.autograd.grad(loss, params)
+                    torch.randperm(B, generator=gen, device=dev)).to(dev)
+            for idx in minibatch_indices(perm):
+                loss, aux, grads = join_minibatch(*loss_and_grads(
+                    net, norm, {k: v[idx] for k, v in batch.items()}, params))
                 gn = global_norm(grads)
                 ok = torch.isfinite(gn) & torch.isfinite(loss) & ~stopped
                 ts.opt.step(grads, ok)
@@ -518,13 +591,14 @@ def make_train_step(env_cfg: C.EnvConfig, ppo_cfg: PPOConfig):
         tfirst = torch.argmax(fin_t.int(), dim=0)
         snap = traj["ret_snap"][tfirst, torch.arange(E, device=dev)]   # (E, N)
         snap = torch.where(torch.isfinite(snap), snap, 0.0)
-        n_fin = finished.sum()
+        n_fin = world.sum(finished.sum())
         per_env_ret = snap.mean(-1)
         ep_return = torch.where(
-            n_fin > 0, torch.sum(torch.where(finished, per_env_ret, 0.0))
+            n_fin > 0, world.sum(torch.sum(torch.where(finished, per_env_ret, 0.0)))
             / torch.clamp(n_fin, min=1), 0.0)
         ep_return_max = torch.where(
-            n_fin > 0, torch.max(torch.where(finished, per_env_ret, -torch.inf)), 0.0)
+            n_fin > 0, world.max(torch.max(torch.where(finished, per_env_ret, -torch.inf))),
+            0.0)
 
         if frames is not None:
             # Envs about to be reset start their next episode with a
@@ -532,23 +606,33 @@ def make_train_step(env_cfg: C.EnvConfig, ppo_cfg: PPOConfig):
             needs = penv.episode_over(env_cfg, env_state)
             frames = torch.where(needs.reshape((E,) + (1,) * (frames.dim() - 1)),
                                  torch.zeros((), dtype=frames.dtype, device=dev), frames)
-        env_state = penv.reset_done_envs(env_cfg, env_state, ts.pool, gen)
-        obs_rms = _rms_update(ts.obs_rms, traj["obs"], traj["alive"]) if use_rms else None
+        # The autoreset draws every env's next episode, and this rank takes
+        # its rows' (the generators stay in step).
+        idx, orders, dirs = penv.draw_episodes(env_cfg, E_all, ts.pool.n_tiles.shape[0], gen)
+        env_state = penv.reset_envs_from_pool(env_cfg, env_state, ts.pool, idx[lo:hi],
+                                              orders[lo:hi], dirs[lo:hi])
+        obs_rms = (_rms_update(ts.obs_rms, traj["obs"], traj["alive"], world) if use_rms
+                   else None)
 
         mark("reset")
+        new_ts = dataclasses.replace(ts, env_state=env_state, update_i=ts.update_i + 1,
+                                     obs_rms=obs_rms, frames=frames)
+        if os.environ.get("MCR_PPO_DEBUG_STATS"):
+            st = stats.reshape(8, ppo_cfg.epochs, M)
+            return new_ts, dict(stats_loss=st[0], stats_pg=st[1], stats_v=st[2],
+                                stats_dlogp=st[4], stats_kl=st[5], stats_gn=st[6])
         metrics = dict(
             loss=stats[0].mean(), pg_loss=stats[1].mean(), v_loss=stats[2].mean(),
             ratio_dev=stats[3].mean(), dlogp_max=stats[4].max(),
             approx_kl_max=stats[5].max(), grad_norm_max=stats[6].max(),
             skipped_updates=stats[7].sum(),
-            nan_envs=traj["nan_env"].any(0).sum().float(),
-            mean_step_reward=traj["reward"].mean(),
-            mean_value=values.mean(),
+            nan_envs=world.sum(traj["nan_env"].any(0).sum()).float(),
+            mean_step_reward=world.mean(traj["reward"], E_all, dim=1),
+            mean_value=world.mean(values, E_all, dim=1),
             ep_return=ep_return, ep_return_max=ep_return_max,
             episodes_finished=n_fin.float(),
         )
-        return dataclasses.replace(ts, env_state=env_state, update_i=ts.update_i + 1,
-                                   obs_rms=obs_rms, frames=frames), metrics
+        return new_ts, metrics
 
     train_step.marks = []
     return train_step

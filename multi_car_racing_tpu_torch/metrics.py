@@ -18,19 +18,25 @@ from typing import IO
 
 import torch
 
+from .parallel.mesh import World
 
-def env_metrics(state) -> dict:
+
+def env_metrics(state, world: World = World(), num_envs: int | None = None) -> dict:
     """Device-side metrics of a batched EnvState (E, ...): 0-d tensors on
-    the state's device, the JAX keys."""
+    the state's device, the JAX keys. Under data parallelism the state is
+    this rank's rows of ``num_envs`` envs (default: its own rows) and each
+    metric is the mean over all of them."""
     f32 = torch.float32
+    n = state.reward.shape[0] if num_envs is None else num_envs
+
     return dict(
-        mean_cum_reward=state.reward.mean(),
-        mean_tiles_visited=state.tile_visited_count.to(f32).mean(),
-        frac_done=state.done.to(f32).mean(),
-        frac_on_grass=state.driving_on_grass.to(f32).mean(),
-        frac_backward=state.driving_backward.to(f32).mean(),
-        mean_speed=torch.linalg.vector_norm(state.cars.hull_v, dim=-1).mean(),
-        mean_episode_steps=state.steps.to(f32).mean(),
+        mean_cum_reward=world.mean(state.reward, n),
+        mean_tiles_visited=world.mean(state.tile_visited_count.to(f32), n),
+        frac_done=world.mean(state.done.to(f32), n),
+        frac_on_grass=world.mean(state.driving_on_grass.to(f32), n),
+        frac_backward=world.mean(state.driving_backward.to(f32), n),
+        mean_speed=world.mean(torch.linalg.vector_norm(state.cars.hull_v, dim=-1), n),
+        mean_episode_steps=world.mean(state.steps.to(f32), n),
     )
 
 

@@ -18,10 +18,24 @@ the device: the same distribution of tracks, not the same stream). The console
 lines and the JSONL rows (``metrics.JsonlLogger``) carry the JAX keys, so
 ``scripts/curve.py`` reads the log unchanged.
 
-``--distributed``, ``--coordinator``, ``--num-processes`` and
-``--process-id`` are accepted and refused: multi-GPU data parallelism is a
-later part of the port. ``--profile DIR`` writes a ``torch.profiler``
-Chrome trace of the training loop to DIR.
+``--distributed`` trains on several processes (``parallel.mesh``), one
+per card or several sharing one, computing what one process computes on
+the same global batch, as JAX's mesh does. With ``--coordinator host:port``
+(which needs ``--num-processes`` and ``--process-id``, as in JAX) the
+ranks meet at ``tcp://host:port``; without it the process group reads
+torchrun's variables (the ``--`` keeps torchrun from reading ``--log`` as
+an abbreviation of its own ``--log-dir``)::
+
+    torchrun --nproc-per-node 4 -m multi_car_racing_tpu_torch.train -- --distributed
+    python -m multi_car_racing_tpu_torch.train --distributed --device cpu \\
+        --coordinator 127.0.0.1:29500 --num-processes 2 --process-id 0   # and 1
+
+Without ``--distributed`` those three flags are ignored, as in JAX. Each
+rank prints its console lines (the device line names the rank and its env
+rows); rank 0 alone writes ``--log`` and ``--profile``; every rank runs the
+evaluation whole, from the same seed; ``save`` is collective.
+``--profile DIR`` writes a ``torch.profiler`` Chrome trace of the training
+loop to DIR.
 """
 
 from __future__ import annotations
@@ -36,6 +50,7 @@ from . import checkpoint, metrics
 from . import config as C
 from .learner import evaluate as ev
 from .learner import ppo
+from .parallel import mesh
 from .util import resolve_device
 
 EVAL_SEED_OFFSET = 1_000_003      # the JAX eval key's seed offset
@@ -109,9 +124,9 @@ def build_parser() -> argparse.ArgumentParser:
                          "clobbers a better earlier snapshot)")
     ap.add_argument("--profile", default=None, help="torch.profiler trace dir")
     ap.add_argument("--distributed", action="store_true",
-                    help="multi-process training (not ported yet: refused)")
+                    help="multi-process data parallelism (torch.distributed)")
     ap.add_argument("--coordinator", default=None,
-                    help="coordinator host:port (multi-process; refused)")
+                    help="coordinator host:port (else torchrun's variables)")
     ap.add_argument("--num-processes", type=int, default=None)
     ap.add_argument("--process-id", type=int, default=None)
     ap.add_argument("--fast-solver", action="store_true",
@@ -128,21 +143,32 @@ _SHAPE_FIELDS = ("rollout_len", "num_envs", "pool_size", "obs_type", "normalize_
 def main(argv=None):
     ap = build_parser()
     args = ap.parse_args(argv)
-    multi = [flag for flag, on in (("--distributed", args.distributed),
-                                   ("--coordinator", args.coordinator is not None),
-                                   ("--num-processes", args.num_processes is not None),
-                                   ("--process-id", args.process_id is not None)) if on]
-    if multi:
-        ap.error(f"{', '.join(multi)}: multi-process training waits for the port's "
-                 "multi-GPU slice (torch.distributed data parallelism); this trainer "
-                 "runs one process on one device")
+    if args.distributed and args.coordinator is not None and (
+            args.num_processes is None or args.process_id is None):
+        ap.error("--coordinator requires --num-processes and --process-id (they cannot be "
+                 "auto-detected from an address alone)")
     if args.action_repeat < 1:
         ap.error("--action-repeat must be >= 1")
     if args.normalize_obs and args.obs == "pixels":
         ap.error("--normalize-obs only applies to --obs state "
                  "(pixel frames are uint8-scaled inside the network)")
 
-    dev = resolve_device(args.device)
+    if args.distributed:
+        try:
+            world, dev = mesh.init(args.coordinator, args.num_processes, args.process_id,
+                                   args.device)
+        except ValueError as e:
+            ap.error(f"--distributed: {e}")
+    else:
+        world, dev = mesh.World(), resolve_device(args.device)
+    try:
+        return _train(args, ap, world, dev)
+    finally:
+        if args.distributed:
+            mesh.shutdown()
+
+
+def _train(args, ap, world: mesh.World, dev: torch.device):
     env_kw = {}
     if args.fast_solver:
         env_kw = dict(velocity_iters=30, position_iters=12)
@@ -167,12 +193,17 @@ def main(argv=None):
     )
 
     name = f"{dev} ({torch.cuda.get_device_name(dev)})" if dev.type == "cuda" else str(dev)
-    print(f"device: {name}, one process")
+    if world.distributed:
+        lo, hi = world.rows(args.num_envs)
+        print(f"device: {name}, process {world.rank} of {world.size} ({world.backend}), "
+              f"env rows {lo}:{hi} of {args.num_envs}")
+    else:
+        print(f"device: {name}, one process")
     if args.resume:
         # The JAX trainer restores the arrays into a template built from the
         # flags; here the archive holds its own configs, which must match the
         # flags that shape the state. The flags' configs then drive the run.
-        ts = checkpoint.restore(args.resume, device=dev)
+        ts = checkpoint.restore(args.resume, device=dev, world=world)
         bad = [f for f in _SHAPE_FIELDS if getattr(ts.ppo_cfg, f) != getattr(ppo_cfg, f)]
         if ts.env_cfg != env_cfg or bad:
             ap.error(f"--resume {args.resume}: the checkpoint's env config or learner "
@@ -182,21 +213,23 @@ def main(argv=None):
         ts = dataclasses.replace(ts, opt=opt, env_cfg=env_cfg, ppo_cfg=ppo_cfg)
         print(f"resumed from {args.resume} at update {int(ts.update_i)}")
     else:
-        ts = ppo.init_train_state(env_cfg, ppo_cfg, args.seed, device=dev)
-    train_step = ppo.make_train_step(env_cfg, ppo_cfg)
+        ts = ppo.init_train_state(env_cfg, ppo_cfg, args.seed, device=dev, world=world)
+    train_step = ppo.make_train_step(env_cfg, ppo_cfg, world)
     eval_fn = None
     if args.eval_every:
         eval_fn = ev.make_eval_fn(env_cfg, ppo_cfg, args.eval_episodes)
         best_eval = -float("inf") if args.best_so_far is None else args.best_so_far
 
-    logger = metrics.JsonlLogger(args.log)
+    lead = world.rank == 0
+    logger = metrics.JsonlLogger(args.log if lead else None)
     steps_per_update = args.rollout * args.action_repeat * args.num_envs * args.num_agents
-    with metrics.profile_trace(args.profile):
+    with metrics.profile_trace(args.profile if lead else None):
         for i in range(args.updates):
             t0 = time.time()
             ts, m = train_step(ts)
             m = {k: float(v) for k, v in m.items()}
-            env_m = {k: float(v) for k, v in metrics.env_metrics(ts.env_state).items()}
+            env_m = {k: float(v) for k, v in metrics.env_metrics(
+                ts.env_state, world, args.num_envs).items()}
             row = logger.log(
                 int(ts.update_i) * steps_per_update, {**m, **env_m},
                 update=int(ts.update_i), update_s=round(time.time() - t0, 3),
@@ -211,7 +244,7 @@ def main(argv=None):
                 f"{row.get('env_steps_per_sec', 0):,.0f} steps/s"
             )
             if args.checkpoint and (i + 1) % args.ckpt_every == 0:
-                checkpoint.save(args.checkpoint, ts)
+                checkpoint.save(args.checkpoint, ts, world)
                 print(f"checkpointed -> {args.checkpoint}")
             if eval_fn is not None and (i + 1) % args.eval_every == 0:
                 state = ev.episode_state(env_cfg, args.eval_episodes,
@@ -228,13 +261,17 @@ def main(argv=None):
                     f"len {summary['eval_len']:.0f} "
                     f"over {summary['eval_episodes']} episodes"
                 )
-                if args.checkpoint and summary["eval_return"] > best_eval:
-                    best_eval = summary["eval_return"]
-                    checkpoint.save(args.checkpoint + "_best", ts)
+                # Every rank evaluated the same episodes; rank 0's return
+                # decides, so every rank makes the same (collective) save.
+                ret = float(world.broadcast(torch.tensor(summary["eval_return"], dtype=torch.float64,
+                                                          device=dev)))
+                if args.checkpoint and ret > best_eval:
+                    best_eval = ret
+                    checkpoint.save(args.checkpoint + "_best", ts, world)
                     print(f"  new best ({best_eval:+.1f}) -> {args.checkpoint}_best")
 
     if args.checkpoint:
-        checkpoint.save(args.checkpoint, ts)
+        checkpoint.save(args.checkpoint, ts, world)
         print(f"final checkpoint -> {args.checkpoint}")
     return ts
 

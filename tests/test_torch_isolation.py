@@ -35,7 +35,8 @@ for name in ("jax", "jaxlib", "flax"):
 sys.path.insert(0, {str(ROOT)!r})
 import multi_car_racing_tpu_torch
 from multi_car_racing_tpu_torch import config, convert, env, obs, seeding, util, _cuda
-from multi_car_racing_tpu_torch import gym_api, metrics, monitor, train, window
+from multi_car_racing_tpu_torch import demo, gym_api, metrics, monitor, train, tui, window
+from multi_car_racing_tpu_torch.parallel import mesh
 from multi_car_racing_tpu_torch.physics import (
     collide, fused_world, joints, overlap, shapes, state, tire, track_engine, world)
 from multi_car_racing_tpu_torch.track import common, device, host

@@ -20,7 +20,25 @@ Against JAX:
   1e-4 * max(1, |x|); obs_rms within 1e-5 * max(1, |x|); parameters within
   2 * lr per applied update (Adam's first step is lr * sign(g), and a
   gradient near 0 flips sign on float noise), and fewer than 1% of each
-  leaf's elements more than 1e-5 apart.
+  leaf's elements more than 1e-5 apart. JAX's side is a module fixture,
+  computed once for the tests that hold the port to it.
+- The same step on two gloo ranks (``parallel.mesh``; 4 envs as rows
+  2 + 2, child processes through tests/torch_dist.py) against the same
+  JAX step, to the same bars: GSPMD's sharded step computes the one-device
+  function (tests/test_mesh_kernels.py), so that is the reference. The
+  ranks' learner is gathered by ``checkpoint.save``.
+- A ragged layout (5 envs as rows 3 + 2) against one process, port only,
+  with a first permutation that leaves rank 1 no member of the first
+  minibatch (it must still join every collective).
+- The pixel learner (frame_stack = 2, 4 envs as rows 2 + 2) against one
+  process, port only, with every episode ending inside the rollout: each
+  rank slices its frame stacks, resets the frames of its finished rows,
+  and the checkpoint gathers the frames. Both sides run the torso in
+  float32 (``networks.PIXEL_COMPUTE_DTYPE``): in bfloat16 each rank's
+  gradient is rounded before the sum, where one process rounds the sum,
+  and the gradient norm parts past the 1e-4 bar.
+- ``MCR_PPO_DEBUG_STATS``: JAX's six unreduced (epochs, minibatches)
+  statistics under JAX's keys; their loss mean is the step's ``loss``.
 """
 
 import dataclasses
@@ -37,10 +55,12 @@ from multi_car_racing_tpu import config as JC
 from multi_car_racing_tpu.learner import ppo as jppo
 from multi_car_racing_tpu.learner.networks import ActorCritic as JaxActorCritic
 
-from multi_car_racing_tpu_torch import EnvConfig, convert, env as penv
-from multi_car_racing_tpu_torch.learner import evaluate, ppo
+from multi_car_racing_tpu_torch import EnvConfig, checkpoint, convert, env as penv
+from multi_car_racing_tpu_torch.learner import evaluate, networks, ppo
+from multi_car_racing_tpu_torch.learner.networks import ActorCritic
 
 from test_torch_obs import jax_state
+from torch_dist import step_ranks
 from torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 METRIC_TOL = 1e-4
@@ -192,7 +212,10 @@ def _jax_draws(key, jpcfg, n_agents):
             "perm": torch.from_numpy(np.stack(perm)).long()}
 
 
-def test_one_train_step_matches_jax():
+@pytest.fixture(scope="module")
+def jax_step():
+    """The parity inputs (the port's reset state, flax parameters, JAX's
+    draws) and JAX's train step on them, computed once."""
     cfg, pcfg, jcfg, jpcfg = _parity_cfgs()
     state = penv.reset_batch(cfg, range(E_PAR), E_PAR, device="cpu")
     tree = convert.env_state_to_numpy(state)
@@ -207,40 +230,172 @@ def test_one_train_step_matches_jax():
         pool=jax.tree_util.tree_map(lambda x: x[:2], host.track), key=key,
         update_i=jnp.asarray(0, jnp.int32), obs_rms=jppo._rms_init(38), frames=None)
     jts2, jm = jax.jit(jppo.make_train_step(jcfg, jpcfg))(jts)
-    jm = {k: float(v) for k, v in jm.items()}
+    return SimpleNamespace(cfg=cfg, pcfg=pcfg, state=state, pool_tree=pool_tree,
+                           params=jax.device_get(params), draws=_jax_draws(key, jpcfg, 1),
+                           jts2=jts2, jm={k: float(v) for k, v in jm.items()})
 
-    net, _ = convert.policy_from_numpy(jax.device_get(params), obs_type="state",
-                                       width=pcfg.width, frame_stack=1, device="cpu")
-    ts = ppo.TrainState(
-        net=net, opt=ppo.ClippedAdam(net.parameters(), pcfg), env_state=state,
-        pool=convert.track_from_numpy(pool_tree, device="cpu"),
-        generator=torch.Generator().manual_seed(0), update_i=0, env_cfg=cfg, ppo_cfg=pcfg,
-        obs_rms=ppo._rms_init(38, "cpu"))
-    ts2, m = ppo.make_train_step(cfg, pcfg)(ts, draws=_jax_draws(key, jpcfg, 1))
-    m = {k: float(v) for k, v in m.items()}
 
-    assert m["episodes_finished"] == jm["episodes_finished"] == 0.0     # no autoreset
-    assert not bool(np.asarray(jts2.env_state.done).any())
-    assert m.keys() == jm.keys()
-    for k, want in jm.items():
+def _port_state(j):
+    """The port's learner on the parity inputs, fresh."""
+    net, _ = convert.policy_from_numpy(j.params, obs_type="state", width=j.pcfg.width,
+                                       frame_stack=1, device="cpu")
+    return ppo.TrainState(
+        net=net, opt=ppo.ClippedAdam(net.parameters(), j.pcfg), env_state=j.state,
+        pool=convert.track_from_numpy(j.pool_tree, device="cpu"),
+        generator=torch.Generator().manual_seed(0), update_i=0, env_cfg=j.cfg,
+        ppo_cfg=j.pcfg, obs_rms=ppo._rms_init(38, "cpu"))
+
+
+def _assert_step_matches(m, ts2, want_m, want_params, want_rms, want_tiles, want_hull, pcfg):
+    """The parity bars of the module docstring."""
+    assert m.keys() == want_m.keys()
+    for k, want in want_m.items():
         assert abs(m[k] - want) <= METRIC_TOL * max(1.0, abs(want)), (k, m[k], want)
     applied = pcfg.epochs * pcfg.minibatches - m["skipped_updates"]
-    assert applied == 2
+    assert applied == pcfg.epochs * pcfg.minibatches
     back, rms = convert.policy_to_numpy(ts2.net, ts2.obs_rms)
-    flat_j = jax.tree_util.tree_leaves_with_path(jax.device_get(jts2.params))
+    flat_w = jax.tree_util.tree_leaves_with_path(want_params)
     flat_t = jax.tree_util.tree_leaves_with_path(back)
-    for (path, a), (_, b) in zip(flat_j, flat_t):
+    assert len(flat_w) == len(flat_t)
+    for (path, a), (_, b) in zip(flat_w, flat_t):
         assert np.abs(a - b).max() <= 2 * pcfg.lr * applied, path
         assert np.mean(np.abs(a - b) > 1e-5) < 0.01, path     # sign flips stay rare
-    for k in ("mean", "var", "count"):
-        want = np.asarray(jts2.obs_rms[k])
+    assert (rms is None) == (want_rms is None)
+    for k in ("mean", "var", "count") if rms is not None else ():
+        want = np.asarray(want_rms[k])
         assert np.abs(rms[k] - want).max() <= RMS_TOL * max(1.0, float(np.abs(want).max())), k
-    assert ts2.update_i == 1 and int(ts2.opt.count) == 2
-    # The env went on from where JAX's went: the same tiles, the cars together.
-    assert np.array_equal(ts2.env_state.tile_visited_count.numpy(),
-                          np.asarray(jts2.env_state.tile_visited_count))
-    np.testing.assert_allclose(ts2.env_state.cars.hull_c.numpy(),
-                               np.asarray(jts2.env_state.cars.hull_c), rtol=0, atol=1e-3)
+    assert ts2.update_i == 1 and int(ts2.opt.count) == applied
+    # The env went on from where the reference's went: the same tiles, the cars together.
+    assert np.array_equal(ts2.env_state.tile_visited_count.numpy(), np.asarray(want_tiles))
+    np.testing.assert_allclose(ts2.env_state.cars.hull_c.numpy(), np.asarray(want_hull),
+                               rtol=0, atol=1e-3)
+
+
+def _assert_matches_jax(m, ts2, j):
+    assert m["episodes_finished"] == j.jm["episodes_finished"] == 0.0     # no autoreset
+    assert not bool(np.asarray(j.jts2.env_state.done).any())
+    _assert_step_matches(m, ts2, j.jm, jax.device_get(j.jts2.params), j.jts2.obs_rms,
+                         j.jts2.env_state.tile_visited_count, j.jts2.env_state.cars.hull_c,
+                         j.pcfg)
+
+
+def test_one_train_step_matches_jax(jax_step):
+    ts2, m = ppo.make_train_step(jax_step.cfg, jax_step.pcfg)(_port_state(jax_step),
+                                                             draws=jax_step.draws)
+    _assert_matches_jax({k: float(v) for k, v in m.items()}, ts2, jax_step)
+
+
+def _ragged_case():
+    """5 envs as rows 3 + 2, two epochs; the first epoch's permutation puts
+    rank 0's 12 samples first, so rank 1 owns none of minibatch 0."""
+    cfg = EnvConfig(num_agents=1, velocity_iters=8, position_iters=3)
+    pcfg = ppo.PPOConfig(rollout_len=T_PAR, num_envs=5, pool_size=2, minibatches=2,
+                         epochs=2, normalize_obs=True, train_grass_cost=0.5,
+                         train_skip_cost=2.0, anneal_lr=True)
+    net = ActorCritic(obs_type="state", width=pcfg.width, frame_stack=1,
+                      generator=torch.Generator().manual_seed(3))
+    ts = ppo.TrainState(
+        net=net, opt=ppo.ClippedAdam(net.parameters(), pcfg),
+        env_state=penv.reset_batch(cfg, range(5), 5, device="cpu"),
+        pool=penv.make_host_track_pool(cfg, (5, 6), device="cpu"),
+        generator=torch.Generator().manual_seed(0), update_i=0, env_cfg=cfg, ppo_cfg=pcfg,
+        obs_rms=ppo._rms_init(38, "cpu"))
+    g = torch.Generator().manual_seed(4)
+    B = T_PAR * 5
+    rank0 = (torch.arange(B) % 5) < 3                     # N = 1: sample b is env b % 5
+    own0, own1 = torch.nonzero(rank0).flatten(), torch.nonzero(~rank0).flatten()
+    first = torch.cat([own0[torch.randperm(12, generator=g)],
+                       own1[torch.randperm(8, generator=g)]])
+    return ts, {"noise": torch.randn((T_PAR, 5, 1, 3), generator=g),
+                "perm": torch.stack([first, torch.randperm(B, generator=g)])}
+
+
+def _pixel_case():
+    """4 pixel envs as rows 2 + 2, frame_stack = 2; envs 1 and 2 (one on
+    each rank) start 3 steps into a 6-step episode, so they end inside the
+    4-step rollout and are reset, frames and all, while envs 0 and 3 go on."""
+    cfg = EnvConfig(num_agents=1, velocity_iters=8, position_iters=3, max_episode_steps=6)
+    pcfg = ppo.PPOConfig(rollout_len=T_PAR, num_envs=4, pool_size=2, minibatches=2, epochs=1,
+                         obs_type="pixels", frame_stack=2)
+    ts = ppo.init_train_state(cfg, pcfg, 0, device="cpu")
+    ts.env_state.steps[1:3] = 3
+    g = torch.Generator().manual_seed(5)
+    # Earlier frames in the stack (zeros at a fresh start), so that each
+    # rank must restore its own rows' frames.
+    ts.frames = torch.randint(0, 256, ts.frames.shape, generator=g, dtype=torch.uint8)
+    return ts, {
+        "noise": torch.randn((T_PAR, 4, 1, 3), generator=g),
+        "perm": torch.randperm(T_PAR * 4, generator=g)[None]}
+
+
+@pytest.fixture(scope="module")
+def two_rank_steps(jax_step, tmp_path_factory):
+    """The parity, ragged and pixel steps, each on two gloo ranks (child
+    processes, one launch): {case: (rank 0's metrics, the gathered learner
+    restored on the CPU, the saved input's path, the draws)}."""
+    d = tmp_path_factory.mktemp("two_rank")
+    cases = {"jax": (_port_state(jax_step), jax_step.draws), "ragged": _ragged_case(),
+             "pixels": _pixel_case()}
+    jobs = []
+    for name, (ts, draws) in cases.items():
+        job = tuple(str(d / f"{name}_{n}") for n in ("state", "draws.pt", "out"))
+        checkpoint.save(job[0], ts)
+        torch.save(draws, job[1])
+        jobs.append(job + (("fp32",) if name == "pixels" else ()))
+    codes, outs = step_ranks(jobs)
+    assert codes == [0, 0], outs
+    out = {}
+    for name, (state, draws, path, *_) in zip(cases, jobs):
+        metrics = [torch.load(f"{path}.rank{r}.metrics", weights_only=True) for r in (0, 1)]
+        assert metrics[0] == metrics[1], metrics                 # every rank the same
+        out[name] = (metrics[0], checkpoint.restore(path, device="cpu"), state,
+                     cases[name][1])
+    return out
+
+
+def test_two_rank_train_step_matches_jax(jax_step, two_rank_steps):
+    m, ts2, _, _ = two_rank_steps["jax"]
+    _assert_matches_jax(m, ts2, jax_step)
+
+
+def _assert_matches_one_process(case):
+    """The two-rank step of ``case`` against the same step in one process;
+    returns both learners after it."""
+    m2, ts2, state, draws = case
+    one = checkpoint.restore(state, device="cpu")
+    one, m1 = ppo.make_train_step(one.env_cfg, one.ppo_cfg)(one, draws=draws)
+    params, rms = convert.policy_to_numpy(one.net, one.obs_rms)
+    _assert_step_matches(m2, ts2, {k: float(v) for k, v in m1.items()}, params, rms,
+                         one.env_state.tile_visited_count, one.env_state.cars.hull_c,
+                         one.ppo_cfg)
+    return ts2, one
+
+
+def test_ragged_two_rank_step_matches_one_process(two_rank_steps):
+    _assert_matches_one_process(two_rank_steps["ragged"])
+
+
+def test_pixel_two_rank_step_matches_one_process(two_rank_steps, monkeypatch):
+    monkeypatch.setattr(networks, "PIXEL_COMPUTE_DTYPE", torch.float32)    # as the ranks ran
+    ts2, one = _assert_matches_one_process(two_rank_steps["pixels"])
+    assert two_rank_steps["pixels"][0]["episodes_finished"] == 2.0     # envs 1 and 2
+    live = ts2.frames.flatten(1).sum(1) > 0
+    assert live.tolist() == [True, False, False, True]      # the reset rows' frames zeroed
+    assert torch.equal(ts2.frames, one.frames)
+
+
+def test_debug_stats_match_jax_keys(monkeypatch, jax_step):
+    monkeypatch.setenv("MCR_PPO_DEBUG_STATS", "1")
+    _, st = ppo.make_train_step(jax_step.cfg, jax_step.pcfg)(_port_state(jax_step),
+                                                            draws=jax_step.draws)
+    assert set(st) == {"stats_loss", "stats_pg", "stats_v", "stats_dlogp", "stats_kl",
+                       "stats_gn"}
+    shape = (jax_step.pcfg.epochs, jax_step.pcfg.minibatches)
+    assert all(tuple(v.shape) == shape for v in st.values())
+    want = jax_step.jm["loss"]
+    assert abs(float(st["stats_loss"].mean()) - want) <= METRIC_TOL * max(1.0, abs(want))
+    assert float(st["stats_dlogp"].max()) == pytest.approx(jax_step.jm["dlogp_max"],
+                                                           rel=METRIC_TOL, abs=METRIC_TOL)
 
 
 # -------------------------------------------- the port's own learner behaviours

@@ -12,8 +12,11 @@
   iterations and an 8-step time limit, as ``test_torch_evaluate.py`` runs
   ``evaluate.main``), evaluates at update 2, checkpoints every update,
   writes finite JSONL rows that ``scripts/curve.py`` prints as an eval row;
-  a ``--resume`` run continues at update 2. ``--distributed`` and its
-  companions are refused.
+  a ``--resume`` run continues at update 2.
+- JAX's checks on the multi-process flags: ``--coordinator`` under
+  ``--distributed`` needs ``--num-processes`` and ``--process-id``, and
+  ``--distributed`` alone needs torchrun's variables (JAX's auto-detection);
+  tests/test_torch_multiprocess.py trains on two ranks.
 """
 
 import ast
@@ -32,6 +35,7 @@ import torch
 from multi_car_racing_tpu import metrics as jmetrics
 
 from multi_car_racing_tpu_torch import EnvConfig, convert, env as penv, metrics, train
+from multi_car_racing_tpu_torch.parallel import mesh
 from test_torch_obs import jax_state
 from torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
@@ -162,12 +166,20 @@ def test_main_trains_evaluates_checkpoints_and_resumes(tmp_path, monkeypatch, ca
     assert "differ from the flags" in capsys.readouterr().err
 
 
-@pytest.mark.parametrize("flags", [["--distributed"], ["--coordinator", "localhost:1234"],
-                                   ["--num-processes", "2", "--process-id", "0"]])
-def test_multi_process_flags_are_refused(flags, capsys):
+@pytest.mark.parametrize("flags", [
+    ["--distributed"],
+    ["--distributed", "--coordinator", "127.0.0.1:1234"],
+    ["--distributed", "--coordinator", "127.0.0.1:1234", "--num-processes", "2"]])
+def test_multi_process_flags_are_refused(flags, capsys, monkeypatch):
+    for var in mesh.ENV_VARS:
+        monkeypatch.delenv(var, raising=False)
     with pytest.raises(SystemExit):
         train.main(flags + ["--device", "cpu"])
-    assert "multi-GPU" in capsys.readouterr().err
+    err = capsys.readouterr().err
+    if "--coordinator" in flags:
+        assert "--coordinator requires --num-processes and --process-id" in err
+    else:
+        assert "torchrun's variables" in err and "MASTER_ADDR" in err
 
 
 def test_flag_checks_match_jax(capsys):
