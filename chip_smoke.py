@@ -40,7 +40,9 @@ tracks, and the batched facade's (phases 27-29: ``VectorMultiCarRacing``
 runs K1 or K2 and K4/K5 on every step, K6 on every pixel frame), are
 generated on the card by ``track/device.py``, plain torch ops as JAX's is
 XLA. Phase 30 drives K2 and K3 past N = 9, where a warp's arrays move from
-shared memory to a global scratch buffer. Phases 31-32 run the learner data
+shared memory to a global scratch buffer, and past N = 32, where a lane of
+their warps carries two cars; phase 34 drives K4/K5 and K6 there and
+``gym_api.make("MultiCarRacing-v0", num_agents=33)``. Phases 31-32 run the learner data
 parallel (``parallel/mesh.py``): a world of one over NCCL, and two ranks
 sharing the card over gloo, each launching K1, or K2, K4/K5 and K6, on its
 rows of the env batch; phase 33 runs ``demo.py``.
@@ -243,7 +245,11 @@ on_grass, count and nearest_beta equal, bonus within 2e-5.
      the plain island on the all-near spawn tick and the driven state, K3
      against world.world_step on the driven state (the island bars; near
      envs, live contacts), the wrapper's scratch slots byte-equal to 7
-     slots, two launches bit-identical, K2's and K3's ms and bounds
+     slots, two launches bit-identical, K2's and K3's ms and bounds; the
+     same at N = 33 and 64 (PAST_WARP_NS: each lane carries two cars), with
+     the plain island's ms, and K2 and K3 against plain on 8 envs of piled
+     groups of four cars at rest (hundreds of live rows an env, past row
+     2^16 at N = 64)
  31. a world of one over NCCL (parallel/mesh.py's init in this process,
      a process group on 127.0.0.1): the state recipe's learner (phase 22's
      shape) from one start, DP_UPDATES = 2 updates run twice without a
@@ -267,9 +273,18 @@ on_grass, count and nearest_beta equal, bonus within 2e-5.
      the facade, a GIF written through Pillow; counts zeroed before it:
      K2 and K4/K5 once per step and for the reset's spawn tick, K6 once per
      frame (the reset's and each step's)
- 34. the learner JSON line, the facade JSON line, the generation JSON line
-     (phases 27-30), the data-parallel JSON line (phases 31-33), the
-     kernels JSON line, the nvidia-smi line, and the result line
+ 34. past 32 cars an env: on phase 30's driven states at N = 33 and 64
+     (E = 64), K4/K5 against the plain track pass (track bars, two launches
+     bit-identical) and K6 against the plain painter on the warm views and 2
+     s later (byte for byte), each with its ms (graph_ms), plain ms and
+     bound; then MultiCarRacing-v0 with num_agents = 33 through the facade
+     on the card, a reset and 20 steps with pixels (counts zeroed after the
+     reset: K2, K4/K5 and K6 once a step, nothing else), the last
+     observation against the plain painter
+ 35. the learner JSON line, the facade JSON line, the generation JSON line
+     (phases 27-30 and 34), the data-parallel JSON line (phases 31-33), the
+     kernels JSON line (K2, K3, K4/K5 and K6 with their N = 33 and 64 times
+     under ``past_32_cars``), the nvidia-smi line, and the result line
 
 The script imports nothing of JAX or of the JAX package.
 """
@@ -338,6 +353,7 @@ ALL_NEAR_PULL = 0.55           # the all-near input: the spawn tick's car 1 move
 N4_E = 1024                    # phase 7's N = 4 near state
 PILE_ENVS, PILE_SEED = 8, 5    # four overlapping cars per env, > 32 live rows
 PILE_STEP, PILE_TURN = 0.3, 0.15   # car c moved 0.3 m at c * 90 degrees, turned c * 0.15 rad
+PILE_GAP = 25.0                 # metres between piled groups past 32 cars (phase 30)
 RAM_STEPS = (100, 160)         # phase 7 looks for the contact in this window
 # K4/K5 replaces both TPU track-pass kernels: v1 (pallas_call :252 through
 # track_pass_batched :190) and v2 (_make_kernel_v2 :304, pallas_call :498
@@ -400,10 +416,12 @@ VEC_SEED = 9
 VEC_LIMIT, VEC_STEPS = 20, 30   # the facade's time limit and steps: the autoreset fires
 # Phase 30: K2 and K3 past N = 9, where a warp's arrays (196,252 bytes at
 # N = 9, 244,936 at N = 10) leave the H100's 232,448 bytes of shared memory a
-# block for a global scratch buffer.
+# block for a global scratch buffer, and past N = 32; phase 34 past N = 32.
 NARROW_NS = (6, 8)              # shared layout, held byte-equal to the scratch layout
 WIDE_NS = (10, 12)
+PAST_WARP_NS = (33, 64)         # past one car a lane: a lane of K2's and K3's warps carries two
 WIDE_E = 64
+PAST_WARP_FACADE_STEPS = 20     # MultiCarRacing-v0 steps with pixels at num_agents=33
 WIDE_NEAR_SHARE = 0.25          # drive until this share of the envs is near, and a contact
 WIDE_MAX_STEPS = 400
 SCRATCH_SLOTS = 7               # forced scratch slots: each warp loops over ~9 of 64 envs
@@ -801,7 +819,9 @@ def ptxas_table(name: str) -> dict:
             cur = next((k for k in ("near_pass", "far_pass", "list_pass", "solve_pass",
                                     "joints_island", "track_pass", "paint_view")
                         if words and k in words[0]), ln)
-            if words and "ILb1E" in words[0]:     # the global-scratch instance of a template
+            if words and "ILb1ELb1E" in words[0]:   # past 32 cars: a lane carries several
+                cur += "_scratch_wide"
+            elif words and "ILb1E" in words[0]:     # the global-scratch instance of a template
                 cur += "_scratch"
             out[cur] = {}
         elif cur is not None and "spill stores" in ln:
@@ -844,6 +864,66 @@ def piled_cars(device):
                        torch.as_tensor(ang, dtype=torch.float32, device=device))
     return (cars, torch.ones((PILE_ENVS, 4, 4), dtype=torch.bool, device=device),
             collide.init_contact_state(PILE_ENVS, 4, device=device))
+
+
+def piled_groups(n: int, device):
+    """PILE_ENVS envs of ``n`` cars at rest in groups of four (the last one
+    short at odd N), PILE_GAP m apart, each group piled as piled_cars piles
+    its four (numpy seed PILE_SEED + n): every env holds more than 32 live
+    manifold rows a group, the cars of a lane (c, c + 32) touch in
+    different groups, and at N = 64 live rows lie past row 2^16. Returns
+    the island's inputs (cars, wheel_on_road, contact carry)."""
+    rng = np.random.RandomState(PILE_SEED + n)
+    g, k = np.arange(n) // 4, np.arange(n) % 4
+    c = k * (np.pi / 2)
+    pos = (rng.uniform(-300, 300, (PILE_ENVS, 1, 2))
+           + np.stack([PILE_GAP * g, np.zeros(n)], -1)[None]
+           + PILE_STEP * np.stack([np.cos(c), np.sin(c)], -1)[None])
+    ang = rng.uniform(-np.pi, np.pi, (PILE_ENVS, int(g[-1]) + 1))[:, g] + PILE_TURN * k[None]
+    cars = create_cars(torch.as_tensor(pos, dtype=torch.float32, device=device),
+                       torch.as_tensor(ang, dtype=torch.float32, device=device))
+    return (cars, torch.ones((PILE_ENVS, n, 4), dtype=torch.bool, device=device),
+            collide.init_contact_state(PILE_ENVS, n, device=device))
+
+
+def pile_checks(n: int, dev: torch.device) -> dict:
+    """K2 against the plain island and K3 against world.world_step on
+    piled_groups at ``n`` cars (the wide instances' contact solve over
+    hundreds of live rows an env), two launches of K2 bit-identical."""
+    ins = piled_groups(n, dev)
+    ok = collide.collide(ins[0], n).point_ok.any(-1)                  # (E, MM)
+    rows = ok.sum(1)
+    last = int(ok.nonzero()[:, 1].max())
+    devs, id_miss, skid_miss = compare_contact_step(
+        fused_world.island_step(*ins), fused_world.island_step_plain(*ins), ins[0], ins[2],
+        f"K2 vs plain (N={n}, piled groups)")
+    # At rest the velocity passes add no impulse; the position passes push
+    # the groups apart (compare_solve would ask for a normal impulse).
+    post, force, motor, bundle = solve_inputs(*ins, n)[:4]
+    k_cars, k_imp = fused_world.world_step_batched(post, force, motor, bundle, n)
+    p_cars, p_bundle = world.world_step(post, force, motor, contacts=bundle)
+    torch.cuda.synchronize()
+    d3 = compare_cars(k_cars, p_cars, post, f"K3 vs plain (N={n}, piled groups)")
+    d3.update(compare_fields(
+        {"normal_imp": k_imp[0], "tangent_imp": k_imp[1]},
+        {"normal_imp": p_bundle.normal_imp, "tangent_imp": p_bundle.tangent_imp},
+        {"normal_imp": bundle.normal_imp, "tangent_imp": bundle.tangent_imp},
+        f"K3 vs plain (N={n}, piled groups)"))
+    fin, ls_in = fused_world.pack_inputs(ins[0], ins[1])
+    a, b = (fused_world.launch_contacts(fin, ls_in, ins[2], n) for _ in range(2))
+    same = all(torch.equal(x, y) for x, y in zip(
+        (a[0], a[1], a[2].normal_imp, a[2].tangent_imp, a[2].ids),
+        (b[0], b[1], b[2].normal_imp, b[2].tangent_imp, b[2].ids)))
+    out = {"live_rows_min": int(rows.min()), "live_rows_max": int(rows.max()),
+           "last_live_row": last, "id_miss_envs": id_miss, "skid_miss": skid_miss,
+           "two_launches_identical": same,
+           "max_err_over_bar": max(max(rv, rs) for d in (devs, d3) for _, rv, rs in d.values())}
+    phase(f"N={n}, {PILE_ENVS} envs of piled groups: live rows an env {out['live_rows_min']}-"
+          f"{out['live_rows_max']}, the last live row {last}; ids differing in {id_miss} envs, "
+          f"skid flags {skid_miss}; two K2 launches bit-identical {same}")
+    if id_miss > 1 or skid_miss > 1 or not same or int(rows.min()) <= 32:
+        raise AssertionError(f"N={n}, piled groups: {out}")
+    return out
 
 
 def live_rows(cars, n: int) -> tuple[float, int]:
@@ -922,17 +1002,22 @@ def solve_inputs(pre, wheel_on_road, contacts, n: int):
     return post, force, motor, collide.make_bundle(man, contacts, post, n), skid, man
 
 
-def compare_solve(inputs, n: int, label: str) -> dict:
+def compare_solve(inputs, n: int, label: str, plain_out: dict | None = None) -> dict:
     """K3 (``world_step_batched`` on the card) against the plain
     ``world.world_step`` on the same card tensors and bundle: every CarState
     field and, with a bundle, both impulses within both bars (the step's
     change taken from K3's input), limit states equal. Fails if a bundle
-    gives no env a live contact."""
+    gives no env a live contact. ``plain_out``, if given, receives the plain
+    solve's results and ms ("cars", "bundle", "ms")."""
     post, force, motor, bundle = inputs[:4]
     k_cars, k_imp = fused_world.world_step_batched(post, force, motor, bundle, n)
     live_list_check(bundle, post.hull_a.shape[0], label)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     p_cars, p_bundle = world.world_step(post, force, motor, contacts=bundle)
     torch.cuda.synchronize()
+    if plain_out is not None:
+        plain_out.update(cars=p_cars, bundle=p_bundle, ms=1e3 * (time.perf_counter() - t0))
     devs = compare_cars(k_cars, p_cars, post, label)
     if bundle is not None:
         devs.update(compare_fields(
@@ -964,12 +1049,13 @@ def live_list_check(bundle, envs: int, label: str) -> int:
     return count
 
 
-def solve_times(pre, wheel_on_road, contacts, n: int) -> dict:
+def solve_times(pre, wheel_on_road, contacts, n: int, plain: dict | None = None) -> dict:
     """On one step's input: K3's time per launch (graph_ms over the bare
     launch on packed inputs, both its kernels), K2's (the whole island, tire
     model and Collide included; K1's at n = 1), the plain tire model +
-    Collide + make_bundle that feed K3, the plain solve's time, K3's live
-    envs and its bound from the work this bundle needs."""
+    Collide + make_bundle that feed K3, the plain solve's time (taken from
+    ``plain``, compare_solve's ``plain_out`` on the same input, if given),
+    K3's live envs and its bound from the work this bundle needs."""
     post, force, motor, bundle = solve_inputs(pre, wheel_on_road, contacts, n)[:4]
     fin, ls_in = fused_world.pack_solve_inputs(post, force, motor)
     ms = graph_ms(lambda: fused_world.launch_solve(fin, ls_in, bundle, n), KERNEL_TIMING_LAUNCHES)
@@ -980,11 +1066,13 @@ def solve_times(pre, wheel_on_road, contacts, n: int) -> dict:
                      if n > 1 else fused_world.launch(fin2, ls_in2, envs),
                      KERNEL_TIMING_LAUNCHES)
     collide_ms = cuda_ms(lambda: solve_inputs(pre, wheel_on_road, contacts, n), 5)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    p_cars, _ = world.world_step(post, force, motor, contacts=bundle)
-    torch.cuda.synchronize()
-    plain_ms = 1e3 * (time.perf_counter() - t0)
+    if plain is None:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p_cars, _ = world.world_step(post, force, motor, contacts=bundle)
+        torch.cuda.synchronize()
+        plain = {"cars": p_cars, "ms": 1e3 * (time.perf_counter() - t0)}
+    p_cars, plain_ms = plain["cars"], plain["ms"]
     n_limit = int((p_cars.limit_state != 0).sum())
     counts = fused_world.solve_island_work(bundle, n)
     flops = fused_world.solve_island_flops(envs * n, n_limit, **counts)
@@ -1232,13 +1320,16 @@ def rollout_phase(smi: str, dev: torch.device) -> dict:
 
 def compare_pixels(cfg, state, label: str) -> dict:
     """K6 against the plain painter on one batch: every byte equal, and two
-    launches bit-identical. Prints what the input exercised; raises past
-    the bar (equality)."""
+    launches bit-identical, with the plain painter's ms. Prints what the
+    input exercised; raises past the bar (equality)."""
     args = pixels.paint_inputs(cfg, state)
     k = pixels.paint_views(*args)
     k2 = pixels.paint_views(*args)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     p = pixels.paint_views_plain(*args)
     torch.cuda.synchronize()
+    plain_ms = 1e3 * (time.perf_counter() - t0)
     cam, p8 = args[0], args[3]
     warm = cam[..., 5] > 0
     flag = p8.shape[2] > 4 * cfg.num_agents
@@ -1248,6 +1339,7 @@ def compare_pixels(cfg, state, label: str) -> dict:
            "bit_identical": torch.equal(k, k2),
            "flag_views": int((p8[:, :, -1, 25] > 0).sum()) if flag else 0,
            "mean_active_quads": float(cam[..., 6][~warm].mean()) if bool((~warm).any()) else 0.0}
+    out["plain_ms"] = plain_ms
     phase(f"{label}: {out['views']} views ({out['warm_views']} warm, {out['flag_views']} with "
           f"the backwards flag, {out['mean_active_quads']:.2f} active road slots per steady "
           f"view); bytes differing from the plain painter {out['differing_bytes']}; two "
@@ -1689,11 +1781,11 @@ def wide_states(n: int, envs: int, dev):
     tracks in turn (spawn order 0..n-1, CCW). ``spawn``: the state before
     the spawn tick with each odd car pulled toward its even partner by
     ALL_NEAR_PULL of their 6 m, phase 6's all-near input pair by pair (every
-    env near). ``driven``: the state after the spawn tick driven by env.step
-    on the card with cycled actions until WIDE_NEAR_SHARE of the envs are
-    broadphase-near and the next step's Collide pass has a live row in some
-    env (at least 10 steps, at most WIDE_MAX_STEPS), whose step count is
-    returned."""
+    env near; an odd N's last car stays where it spawned). ``driven``: the
+    state after the spawn tick driven by env.step on the card with cycled
+    actions until WIDE_NEAR_SHARE of the envs are broadphase-near and the
+    next step's Collide pass has a live row in some env (at least 10 steps,
+    at most WIDE_MAX_STEPS), whose step count is returned."""
     cfg = EnvConfig(num_agents=n, use_random_direction=False)
     pool = penv.make_host_track_pool(cfg, SEEDS, device=dev)
     idx = torch.arange(envs, device=dev) % len(SEEDS)
@@ -1702,9 +1794,10 @@ def wide_states(n: int, envs: int, dev):
     dirs = torch.zeros(envs, dtype=torch.bool, device=dev)
     spawn = penv.spawn_state(cfg, tracks, order, dirs)
     hc, wc = spawn.cars.hull_c.clone(), spawn.cars.wheel_c.clone()
-    pull = ALL_NEAR_PULL * (hc[:, 0::2] - hc[:, 1::2])
-    hc[:, 1::2] += pull
-    wc[:, 1::2] += pull[:, :, None]
+    m = 2 * (n // 2)                       # an odd N's last car has no partner
+    pull = ALL_NEAR_PULL * (hc[:, 0:m:2] - hc[:, 1:m:2])
+    hc[:, 1:m:2] += pull
+    wc[:, 1:m:2] += pull[:, :, None]
     spawn = spawn.replace(cars=spawn.cars.replace(hull_c=hc, wheel_c=wc))
     state = penv.reset_from_parts(cfg, tracks, order, dirs)
     actions = cycled_actions(envs, n, dev)
@@ -1718,21 +1811,25 @@ def wide_states(n: int, envs: int, dev):
     return cfg, spawn, state.replace(cars=pre), t
 
 
-def scratch_checks(inputs, n: int, label: str) -> dict:
+def scratch_checks(inputs, n: int, label: str, plain: dict | None = None) -> dict:
     """K2 and K3 forced into the global scratch layout with SCRATCH_SLOTS
     slots (each warp looping over several envs) on one island input: K2
     against the plain island and K3 against world.world_step within their
     bars, and the elements where each differs from the wrapper's own layout
     (shared memory up to N = 9: another build of the same arithmetic, whose
     contractions into fused multiply-adds may differ in the last bit; past
-    N = 9 the same build, so 0)."""
+    N = 9 the same build, so 0). ``plain``: the plain island's and solve's
+    results on this input, if already computed ("island"; "cars",
+    "bundle")."""
+    plain = plain or {}
     pre, road, cs = inputs
     fin, ls_in = fused_world.pack_inputs(pre, road)
     out2 = [fused_world.launch_contacts(fin, ls_in, cs, n, scratch_warps=w)
             for w in (None, SCRATCH_SLOTS)]
     k_cars, k_skid = fused_world.unpack_outputs(pre, *out2[1][:2])
+    p_island = plain["island"] if "island" in plain else fused_world.island_step_plain(*inputs)
     devs, id_miss, skid_miss = compare_contact_step(
-        (k_cars, k_skid, out2[1][2]), fused_world.island_step_plain(*inputs), pre, cs,
+        (k_cars, k_skid, out2[1][2]), p_island, pre, cs,
         f"K2 in {SCRATCH_SLOTS} scratch slots vs plain ({label})")
     if id_miss > WIDE_E // 1000 + 1 or skid_miss > WIDE_E // 1000 + 1:
         raise AssertionError(f"{label}: {id_miss} envs' ids, {skid_miss} skid flags differ")
@@ -1741,7 +1838,8 @@ def scratch_checks(inputs, n: int, label: str) -> dict:
     out3 = [fused_world.launch_solve(fin3, ls3, bundle, n, scratch_warps=w)
             for w in (None, SCRATCH_SLOTS)]
     envs = post.hull_a.shape[0]
-    p_cars, p_bundle = world.world_step(post, force, motor, contacts=bundle)
+    p_cars, p_bundle = ((plain["cars"], plain["bundle"]) if "cars" in plain
+                        else world.world_step(post, force, motor, contacts=bundle))
     k3 = post.replace(**fused_world._solved_fields(out3[1][0], out3[1][1], envs, n))
     devs3 = compare_cars(k3, p_cars, post, f"K3 in {SCRATCH_SLOTS} scratch slots vs plain "
                                            f"({label})")
@@ -1766,9 +1864,10 @@ def scratch_checks(inputs, n: int, label: str) -> dict:
     return out
 
 
-def wide_contact_phase(dev: torch.device, smi: str) -> dict:
+def wide_contact_phase(dev: torch.device, smi: str) -> tuple[dict, dict]:
     """Phase 30: K2 and K3 past N = 9, where a warp's arrays leave shared
-    memory for the global scratch. At N = 6 and 8 (the shared layout) the
+    memory for the global scratch, and past N = 32 (PAST_WARP_NS), where a
+    lane carries two cars. At N = 6 and 8 (the shared layout) the
     scratch layout forced with SCRATCH_SLOTS slots, on a driven near state,
     within the bars of the plain versions (scratch_checks; the shared
     layout's bytes are held against the parent's by compare_parent.py). At
@@ -1779,15 +1878,17 @@ def wide_contact_phase(dev: torch.device, smi: str) -> dict:
     against world.world_step on the driven state, within their bars (both inputs
     with near envs, the driven one with live contacts); the scratch layout
     with SCRATCH_SLOTS slots byte-equal to the wrapper's (the same build),
-    two launches bit-identical, and their ms and bounds on the driven
-    state."""
-    out = {}
+    two launches of each bit-identical, and their ms and bounds on the
+    driven state; past N = 32 also on piled groups (pile_checks). Returns
+    (the results, {N: (cfg, driven state)} past N = 32 for phase 34)."""
+    out, states = {}, {}
     for n in NARROW_NS:
         _, _, driven, steps = wide_states(n, WIDE_E, dev)
         out[f"N={n}"] = {"driven_steps": steps, **scratch_checks(
             (driven.cars, driven.wheel_on_road, driven.contacts), n,
             f"N={n}, E={WIDE_E}, driven {steps} steps")}
-    for n in WIDE_NS:
+    for n in WIDE_NS + PAST_WARP_NS:
+        t_n = time.perf_counter()
         mm = len(collide.car_pairs(n)) * collide.M_PER_PAIR
         lib2 = fused_world._library(fused_world.CONTACT_KERNEL)
         lib3 = fused_world._library(fused_world.SOLVE_KERNEL)
@@ -1809,16 +1910,24 @@ def wide_contact_phase(dev: torch.device, smi: str) -> dict:
         driven = (state.cars, state.wheel_on_road, state.contacts)
         res = {"rows": mm, "warp_bytes": 4 * floats, "driven_steps": steps,
                "scratch_slots": {"k2": slots[0], "k3": slots[1]}, "launches": counts}
-        worst = {}
-        for name, ins in (("all-near spawn tick", (spawn.cars, spawn.wheel_on_road,
-                                                   spawn.contacts)),
-                          ("driven", driven)):
+        worst, plain = {}, {}
+        # Past 32 cars the driven state's near envs (54 and 60 of 64 in PR
+        # 18's runs) stand for the spawn tick's, and its plain results feed
+        # the later checks: each plain island of 64 cars takes ~2.5 s.
+        cases = (("driven", driven),) if n > fused_world.LANE_CARS else (
+            ("all-near spawn tick", (spawn.cars, spawn.wheel_on_road, spawn.contacts)),
+            ("driven", driven))
+        for name, ins in cases:
             label = f"N={n} {name}"
             k_out = fused_world.island_step(*ins)
             near = int(fused_world.launch_contacts.near_count)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            p_out = fused_world.island_step_plain(*ins)
+            torch.cuda.synchronize()
+            plain.update(island=p_out, island_ms=1e3 * (time.perf_counter() - t0))
             devs, id_miss, skid_miss = compare_contact_step(
-                k_out, fused_world.island_step_plain(*ins), ins[0], ins[2],
-                f"K2 vs plain ({label})")
+                k_out, p_out, ins[0], ins[2], f"K2 vs plain ({label})")
             live = int(k_out[2].normal_imp.gt(0).any(-1).any(-1).sum())
             phase(f"{label}: near envs {near}, envs with a normal impulse {live}; ids differing "
                   f"in {id_miss} envs, skid flags {skid_miss}")
@@ -1830,16 +1939,21 @@ def wide_contact_phase(dev: torch.device, smi: str) -> dict:
             worst[f"k2 {name}"] = max(max(rv, rs) for _, rv, rs in devs.values())
             res[f"{name.replace(' ', '_')}_near_envs"] = near
             res[f"{name.replace(' ', '_')}_live_envs"] = live
-        d3 = compare_solve(solve_inputs(*driven, n), n, f"K3 vs plain (N={n} driven)")
+        d3 = compare_solve(solve_inputs(*driven, n), n, f"K3 vs plain (N={n} driven)", plain)
         worst["k3 driven"] = max(max(rv, rs) for _, rv, rs in d3.values())
         slot_checks = scratch_checks(driven, n, f"N={n} driven, the wrapper's {slots[0]} / "
-                                               f"{slots[1]} slots against {SCRATCH_SLOTS}")
+                                               f"{slots[1]} slots against {SCRATCH_SLOTS}",
+                                     plain)
         fin, ls_in = fused_world.pack_inputs(driven[0], driven[1])
         a, b = (fused_world.launch_contacts(fin, ls_in, driven[2], n) for _ in range(2))
         same = all(torch.equal(x, y) for x, y in zip(
             (a[0], a[1], a[2].normal_imp, a[2].tangent_imp, a[2].ids),
             (b[0], b[1], b[2].normal_imp, b[2].tangent_imp, b[2].ids)))
-        phase(f"N={n} driven: two K2 launches bit-identical {same}")
+        post, force, motor, bundle = solve_inputs(*driven, n)[:4]
+        fin3, ls3 = fused_world.pack_solve_inputs(post, force, motor)
+        a3, b3 = (fused_world.launch_solve(fin3, ls3, bundle, n) for _ in range(2))
+        same = same and all(torch.equal(x, y) for x, y in zip(a3, b3))
+        phase(f"N={n} driven: two K2 launches and two K3 launches bit-identical {same}")
         if (not same or slot_checks["k2_elements_differing_from_wrapper_layout"]
                 or slot_checks["k3_elements_differing_from_wrapper_layout"]):
             raise AssertionError(f"N={n}: the scratch layout is not reproducible")
@@ -1848,8 +1962,111 @@ def wide_contact_phase(dev: torch.device, smi: str) -> dict:
         phase(f"K2 at N={n} on the driven state: {res['k2']['ms']:.5f} ms/launch, bound "
               f"{res['k2']['bound_ms']:.5f} ms ({res['k2']['bound_by']}), "
               f"{res['k2']['near_envs']} near envs, on {smi}")
-        res["k3"] = solve_times(*driven, n)
+        res["k3"] = solve_times(*driven, n, plain)
+        res["k2"]["plain_ms"] = plain["island_ms"]
+        res["seconds"] = time.perf_counter() - t_n
+        phase(f"K2 at N={n}: the plain island on the driven state {plain['island_ms']:.3f} ms; "
+              f"N={n} took {res['seconds']:.1f} s")
+        if n > fused_world.LANE_CARS:
+            res["piled_groups"] = pile_checks(n, dev)
+            states[n] = (cfg, state)
         out[f"N={n}"] = res
+    return out, states
+
+
+def past_warp_phase(states: dict, dev: torch.device, smi: str) -> dict:
+    """Phase 34: K4/K5 and K6 past 32 cars an env, and the Gym facade there.
+    On phase 30's driven states at N = 33 and 64 (WIDE_E envs): K4/K5 on the
+    next step's inputs against the plain track pass (track bars, two
+    launches bit-identical), K6 against the plain painter on the driven
+    (warm) views and 2 s later (steady), byte for byte, and each kernel's ms
+    (graph_ms), plain ms and bound. Then ``gym_api.make("MultiCarRacing-v0",
+    num_agents=33)`` on the card: a reset and PAST_WARP_FACADE_STEPS steps
+    with pixels, the counts set to 0 after the reset and read after the last
+    step (one K2, one K4/K5 and one K6 launch a step, nothing else), and the
+    last observation against the plain painter."""
+    out = {}
+    for n, (cfg, state) in states.items():
+        actions = cycled_actions(WIDE_E, n, dev)
+        pre = apply_controls(state.cars, actions[0])
+        post, _, _ = fused_world.island_step(pre, state.wheel_on_road, state.contacts)
+        args = (state.track, pre, post.hull_origin, state.visited, state.tile_touched, n)
+        k, k2 = track_engine.track_pass(*args), track_engine.track_pass(*args)
+        p = track_engine.track_pass_plain(*args)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(k, k2))
+        track = compare_track(k, p, state.track, f"K4/K5 vs plain (N={n}, E={WIDE_E}, "
+                                                 f"bit-identical {same})")
+        if not same:
+            raise AssertionError(f"N={n}: two K4/K5 launches differ")
+        wheels, origins = track_engine.pack_cars(pre, post.hull_origin)
+        mt = state.track.max_tiles
+        k45_ms = graph_ms(lambda: track_engine.launch(state.track, wheels, origins,
+                                                      state.visited, state.tile_touched),
+                          KERNEL_TIMING_LAUNCHES)
+        k45_plain = cuda_ms(lambda: track_engine.track_pass_plain(*args), 3)
+        nbytes, flops = track_engine.track_pass_work(
+            WIDE_E, n, mt, valid_tiles=int(state.track.n_tiles.sum()),
+            candidates=track_engine.track_candidates(state.track, pre, post.hull_origin),
+            near_post=track_engine.post_candidates(state.track, post.hull_origin))
+        byte_ms, flop_ms = 1e3 * nbytes / PEAK_BYTES_PER_S, 1e3 * flops / PEAK_FP32_FLOPS
+        res = {"k4_k5": {"ms": k45_ms, "plain_ms": k45_plain, "bound_ms": max(byte_ms, flop_ms),
+                         "bound_by": "operations" if flop_ms >= byte_ms else "bytes",
+                         "bonus_err": track["bonus_err"], "new_tiles": track["new_tiles"],
+                         "second_visitor_shares": track["share"]}}
+        steady = state.replace(t=state.t + 2.0)
+        px = {lab: compare_pixels(cfg, st, f"K6 vs plain (N={n}, E={WIDE_E}, {lab})")
+              for lab, st in (("driven", state), ("steady", steady))}
+        pargs = pixels.paint_inputs(cfg, steady)
+        k6_ms = graph_ms(lambda: pixels.paint_views(*pargs), KERNEL_TIMING_LAUNCHES)
+        k6_plain = px["steady"]["plain_ms"]
+        nbytes, flops = pixels.paint_work(cfg, steady)
+        byte_ms, flop_ms = 1e3 * nbytes / PEAK_BYTES_PER_S, 1e3 * flops / PEAK_FP32_FLOPS
+        res["k6"] = {"ms": k6_ms, "plain_ms": k6_plain, "bound_ms": max(byte_ms, flop_ms),
+                     "bound_by": "operations" if flop_ms >= byte_ms else "bytes",
+                     "smem_bytes": pixels.paint_smem_bytes(n, mt),
+                     "checks": {lab: {k: r[k] for k in ("views", "warm_views", "flag_views",
+                                                        "differing_bytes")}
+                                for lab, r in px.items()}}
+        phase(f"N={n}, E={WIDE_E} on {smi}: K4/K5 {k45_ms:.5f} ms/launch (CUDA graph), plain "
+              f"{k45_plain:.3f} ms, bound {res['k4_k5']['bound_ms']:.5f} ms; K6 steady "
+              f"{k6_ms:.5f} ms/launch (CUDA graph, {pixels.paint_smem_bytes(n, mt)} bytes of "
+              f"shared memory a view), plain {k6_plain:.3f} ms, bound "
+              f"{res['k6']['bound_ms']:.5f} ms ({res['k6']['bound_by']})")
+        out[f"N={n}"] = res
+
+    n = PAST_WARP_NS[0]
+    env = gym_api.make("MultiCarRacing-v0", num_agents=n, verbose=0)
+    actions = cycled_actions(1, n, dev)[:, 0].cpu().numpy()
+    env.seed(0)
+    zero_counts()
+    first = env.reset()
+    torch.cuda.synchronize()
+    reset_counts = read_counts()
+    zero_counts()
+    ret = np.zeros(n)
+    t0 = time.perf_counter()
+    for t in range(PAST_WARP_FACADE_STEPS):
+        o, r, done, info = env.step(actions[t % 8])
+        ret += r
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    phase(f"MultiCarRacing-v0 num_agents={n} on the card: launches in the reset {reset_counts}; "
+          f"in {PAST_WARP_FACADE_STEPS} steps with pixels {counts} ({wall:.3f} s); return "
+          f"{ret.round(3).tolist()}")
+    check_counts(f"facade N={n}", counts, PAST_WARP_FACADE_STEPS, PAST_WARP_FACADE_STEPS, n)
+    plain = pixels.paint_views_plain(*pixels.paint_inputs(env.env.cfg, env.state))[0]
+    bad = int((plain.cpu().numpy() != o).any(-1).sum())
+    if (bad or first.shape != (n, 96, 96, 3) or o.shape != (n, 96, 96, 3)
+            or not np.isfinite(ret).all() or min(reset_counts[k] for k in ("k2", "k4_k5")) < 1):
+        raise AssertionError(f"facade N={n}: {bad} pixels differ from the plain painter, "
+                             f"observations {first.shape} {o.shape}, returns {ret}, reset "
+                             f"launches {reset_counts}")
+    out["facade"] = {"num_agents": n, "steps": PAST_WARP_FACADE_STEPS, "wall_s": wall,
+                     "reset_launches": reset_counts, "launches": counts,
+                     "differing_pixels": bad, "return": ret.tolist()}
+    env.close()
     return out
 
 
@@ -2091,19 +2308,19 @@ def state_recipe():
 
 
 def learner_phases(smi: str, dev: torch.device) -> dict:
-    phase(f"19/34 the committed policies' networks on the card vs the CPU ({LEARNER_NET_OBS} "
+    phase(f"19/35 the committed policies' networks on the card vs the CPU ({LEARNER_NET_OBS} "
           f"observations each, after {LEARNER_DRIVE} driven steps)")
     nets = network_phase(dev)
-    phase(f"20/34 the committed policies evaluated on the card: {LEARNER_EPISODES} fresh "
+    phase(f"20/35 the committed policies evaluated on the card: {LEARNER_EPISODES} fresh "
           f"episodes each on tracks generated on the card, seed {LEARNER_SEED}, "
           f"deterministic")
     t20 = time.perf_counter()
     evals = evaluation_phase(smi, dev)
     phase(f"phase 20 took {time.perf_counter() - t20:.1f} s")
-    phase("21/34 three PPO updates at the pixel recipe's shape (multi2px: N=2, E=1024, T=32, "
+    phase("21/35 three PPO updates at the pixel recipe's shape (multi2px: N=2, E=1024, T=32, "
           "R=4, K=2, squash, lr 1e-4, kl_target 0.03)")
     pixel = ppo_phase("pixel PPO", *pixel_recipe(), smi, dev)
-    phase("22/34 three PPO updates at the state recipe's shape (CarRacing-v0, E=1024, T=32, "
+    phase("22/35 three PPO updates at the state recipe's shape (CarRacing-v0, E=1024, T=32, "
           "R=4, normalize, width 512)")
     state = ppo_phase("state PPO", *state_recipe(), smi, dev)
     return {"networks": nets, "evaluations": evals, "ppo_pixels": pixel, "ppo_state": state}
@@ -2594,7 +2811,7 @@ def report(name: str, source: str, replaces: str, launches: int, max_abs_err: fl
 
 def main() -> int:
     start = time.perf_counter()
-    phase("1/34 device")
+    phase("1/35 device")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs the port on the card only",
               file=sys.stderr)
@@ -2608,7 +2825,7 @@ def main() -> int:
     phase(f"device {kind} | nvidia-smi: {smi} | torch {torch.__version__} "
           f"cuda {torch.version.cuda} | python {sys.version.split()[0]}")
 
-    phase("2/34 build (one nvcc per kernel, started together)")
+    phase("2/35 build (one nvcc per kernel, started together)")
     t0 = time.perf_counter()
     kernels = (fused_world.KERNEL, fused_world.CONTACT_KERNEL, fused_world.SOLVE_KERNEL,
                track_engine.KERNEL, pixels.KERNEL)
@@ -2632,7 +2849,7 @@ def main() -> int:
     cfg = EnvConfig(num_agents=1, use_random_direction=False)
     actions = cycled_actions(E, cfg.num_agents, dev)
 
-    phase(f"3/34 K1 vs plain at E={E} after 20 steps")
+    phase(f"3/35 K1 vs plain at E={E} after 20 steps")
     state = penv.reset_batch(cfg, SEEDS, E)
     for t in range(20):
         state, _, _ = penv.step(cfg, state, actions[t % 8])
@@ -2656,7 +2873,7 @@ def main() -> int:
           f"{KERNEL_TIMING_LAUNCHES} launches); "
           f"{ptx['K1'].get('joints_island', {}).get('registers')} registers")
 
-    phase(f"4/34 small input: {len(SMALL_SEEDS)} envs x {SMALL_STEPS} steps, card vs CPU")
+    phase(f"4/35 small input: {len(SMALL_SEEDS)} envs x {SMALL_STEPS} steps, card vs CPU")
     small = {d: penv.reset_batch(cfg, SMALL_SEEDS, len(SMALL_SEEDS), device=d)
              for d in ("cuda", "cpu")}
     returns = {d: 0.0 for d in small}
@@ -2671,7 +2888,7 @@ def main() -> int:
     if not (ret_dev <= 2e-5 and pos_dev <= 1e-3):
         raise AssertionError("small-input run on the card disagrees with the CPU path")
 
-    phase(f"5/34 N=1 main path: reset_batch E={E} ({len(SEEDS)} tracks) + {WARMUP} "
+    phase(f"5/35 N=1 main path: reset_batch E={E} ({len(SEEDS)} tracks) + {WARMUP} "
           f"warm-up + {T} steps")
     run1 = main_path(cfg, actions, "N=1", smi)
     times1 = kernel_times(cfg, run1, actions)
@@ -2683,7 +2900,7 @@ def main() -> int:
 
     cfg2 = EnvConfig(num_agents=2, use_random_direction=False)
     actions2 = cycled_actions(E, cfg2.num_agents, dev)
-    phase(f"6/34 K2 vs plain at N=2, E={E}, driven until {NEAR_SHARE:.0%} of envs are near")
+    phase(f"6/35 K2 vs plain at N=2, E={E}, driven until {NEAR_SHARE:.0%} of envs are near")
     state = penv.reset_batch(cfg2, SEEDS, E)
     for t in range(NEAR_MAX_STEPS + 1):
         pre = apply_controls(state.cars, actions2[t % 8])
@@ -2745,7 +2962,7 @@ def main() -> int:
         raise AssertionError(f"K2 vs plain (all-near): {id_near} envs' ids, {skid_near} skid "
                              f"flags differ")
 
-    phase("7/34 rear-end ram (N=4, E=1): K2 vs plain at the first step with contact")
+    phase("7/35 rear-end ram (N=4, E=1): K2 vs plain at the first step with contact")
     ram_cfg, ram, ram_act, ram_t = ram_state(dev)
     ram_pre = apply_controls(ram.cars, ram_act)
     k_ram = fused_world.island_step(ram_pre, ram.wheel_on_road, ram.contacts)
@@ -2761,7 +2978,7 @@ def main() -> int:
     if ram_id_miss:
         raise AssertionError("ram: K2's manifold ids differ from the plain version's")
 
-    phase(f"7/34 (cont.) N=4, E={N4_E}, driven until {NEAR_SHARE:.0%} of envs are near: K2 vs "
+    phase(f"7/35 (cont.) N=4, E={N4_E}, driven until {NEAR_SHARE:.0%} of envs are near: K2 vs "
           f"plain, the far pass, and K2 beside K3")
     cfg4 = EnvConfig(num_agents=4, use_random_direction=False)
     actions4 = cycled_actions(N4_E, 4, dev)
@@ -2794,7 +3011,7 @@ def main() -> int:
                                                  pile[2], "K2 vs plain (N=4, > 32 live rows)")
     phase(f"> 32 live rows: envs whose manifold ids differ {id_pile}")
 
-    phase("8/34 determinism: two K2 launches on phase 6's input")
+    phase("8/35 determinism: two K2 launches on phase 6's input")
     fin, ls_in = fused_world.pack_inputs(pre, state.wheel_on_road)
     a = fused_world.launch_contacts(fin, ls_in, cs_pre, cfg2.num_agents)
     b = fused_world.launch_contacts(fin, ls_in, cs_pre, cfg2.num_agents)
@@ -2815,19 +3032,19 @@ def main() -> int:
     # K3's path: world_step_batched on the card, its count set to 0 here and
     # read after phase 11; each call below launches K3 once.
     fused_world.world_step_batched.launches = 0
-    phase(f"9/34 K3 vs plain at N=2, E={E}, full {cfg2.velocity_iters}/"
+    phase(f"9/35 K3 vs plain at N=2, E={E}, full {cfg2.velocity_iters}/"
           f"{cfg2.position_iters}, on phase 6's input (plain tire model, Collide, make_bundle)")
     solve2 = solve_inputs(pre, state.wheel_on_road, cs_pre, 2)
     devs3 = compare_solve(solve2, 2, "K3 vs plain (N=2)")
 
-    phase("10/34 K3 vs plain on phase 7's ram (N=4, E=1) and at N=1, E=4096 (no bundle)")
+    phase("10/35 K3 vs plain on phase 7's ram (N=4, E=1) and at N=1, E=4096 (no bundle)")
     devs3.update({f"ram {f}": v for f, v in compare_solve(
         solve_inputs(ram_pre, ram.wheel_on_road, ram.contacts, 4), 4,
         "K3 vs plain (ram, N=4)").items()})
     devs3.update({f"N=1 {f}": v for f, v in compare_solve(
         solve_inputs(pre1, road1, None, 1), 1, "K3 vs plain (N=1)").items()})
 
-    phase("11/34 K2 vs plain Collide + K3 on phase 6's input")
+    phase("11/35 K2 vs plain Collide + K3 on phase 6's input")
     post2, _, _, _, skid2, man2 = solve2
     k3_cars, (k3_ni, k3_ti) = fused_world.world_step_batched(*solve2[:4], 2)
     live_list_check(solve2[3], E, "K3 on phase 6's input")
@@ -2844,7 +3061,7 @@ def main() -> int:
     if k3_launches != 4:
         raise AssertionError(f"K3 launched {k3_launches} times on its path, expected 4")
 
-    phase(f"12/34 K3 determinism and times at N=2, E={E} on phase 6's input, beside K2 on {smi}")
+    phase(f"12/35 K3 determinism and times at N=2, E={E} on phase 6's input, beside K2 on {smi}")
     same3 = []
     for solve_in in (solve2, solve_inputs(*near_in, 2)):
         fin3, ls3 = fused_world.pack_solve_inputs(*solve_in[:3])
@@ -2865,7 +3082,7 @@ def main() -> int:
         phase(f"K3 on the {name} input:")
         times3_more[name] = solve_times(*args)
 
-    phase(f"13/34 N=2 main path: reset_batch E={E} ({len(SEEDS)} tracks) + {WARMUP} "
+    phase(f"13/35 N=2 main path: reset_batch E={E} ({len(SEEDS)} tracks) + {WARMUP} "
           f"warm-up + {T} steps")
     run2 = main_path(cfg2, actions2, "N=2", smi)
     times2 = kernel_times(cfg2, run2, actions2)
@@ -2902,7 +3119,7 @@ def main() -> int:
                                                       for _, rv, rs in devs_pile.values())},
                 ptxas=ptx["K2"])
 
-    phase(f"14/34 K4/K5 vs plain at E={E}, N=1 and N=2, and E={N4_E}, N=4: a stepped state, "
+    phase(f"14/35 K4/K5 vs plain at E={E}, N=1 and N=2, and E={N4_E}, N=4: a stepped state, "
           f"a spawn tick, lifted wheels, and the cull's edges (on-road, seam, kerb, off-road, "
           f"self-approach, wheels-only); the cull's probes (wheels only, origins only)")
     checks = {**track_phase(cfg, actions), **track_phase(cfg2, actions2),
@@ -2918,24 +3135,24 @@ def main() -> int:
                              "cand_mean": r["cand_mean"], "cand_max": r["cand_max"]}
                          for k, r in checks.items()})
 
-    phase(f"15/34 state-PPO rollout: E={E}, N={ROLLOUT_N}, pool of {len(POOL_SEEDS)} host "
+    phase(f"15/35 state-PPO rollout: E={E}, N={ROLLOUT_N}, pool of {len(POOL_SEEDS)} host "
           f"tracks, chunks of {ROLLOUT_CHUNK} steps, past the time limit")
     rollout = rollout_phase(smi, dev)
 
-    phase("16/34 K6 vs plain: N=2 spawn tick, steady, mid zoom, camera jitter, mixed and "
+    phase("16/35 K6 vs plain: N=2 spawn tick, steady, mid zoom, camera jitter, mixed and "
           "backward at E=4096; N=1 CW; N=4 ego colour; the golden frames")
     pool = penv.make_host_track_pool(EnvConfig(num_agents=2), POOL_SEEDS, device=dev)
     t16 = time.perf_counter()
     px_checks = pixel_checks(dev, pool)
     phase(f"phase 16 took {time.perf_counter() - t16:.1f} s")
 
-    phase(f"17/34 pixel main path: reset_batch E={E}, N=2 + {WARMUP} warm-up + {T} steps, a "
+    phase(f"17/35 pixel main path: reset_batch E={E}, N=2 + {WARMUP} warm-up + {T} steps, a "
           f"frame after the reset and after every step")
     t17 = time.perf_counter()
     px_run = pixel_main_path(smi, dev)
     phase(f"phase 17 took {time.perf_counter() - t17:.1f} s")
 
-    phase(f"18/34 pixel-PPO env side: E={PPO_E}, N=2, {PPO_CHUNKS} chunks of {PPO_DECISIONS} "
+    phase(f"18/35 pixel-PPO env side: E={PPO_E}, N=2, {PPO_CHUNKS} chunks of {PPO_DECISIONS} "
           f"decisions x {PPO_REPEAT} steps, autoreset, past the time limit")
     px_rollout = pixel_rollout_phase(smi, dev, pool)
     learner = learner_phases(smi, dev)
@@ -2983,22 +3200,22 @@ def main() -> int:
                                                       "k2_ms_same_input", "live_envs")}
                              for name, t in times3_more.items()},
                 ptxas=ptx["K3"])
-    phase("23/34 the Gym facade on the card: MultiCarRacing-v0 and CarRacing-v0, "
+    phase("23/35 the Gym facade on the card: MultiCarRacing-v0 and CarRacing-v0, "
           f"{FACADE_STEPS} steps each")
     t23 = time.perf_counter()
     facade = {env_id: facade_phase(env_id, smi, dev)
               for env_id in ("MultiCarRacing-v0", "CarRacing-v0")}
     seconds = {"23": time.perf_counter() - t23}
-    phase("24/34 the 600x400 rgb_array painter on the card: the golden frame, and a frame "
+    phase("24/35 the 600x400 rgb_array painter on the card: the golden frame, and a frame "
           "after hard braking")
     t = time.perf_counter()
     facade["rgb_array"] = rgb_array_phase(smi, dev)
     seconds["24"] = time.perf_counter() - t
-    phase("25/34 Monitor: one short episode")
+    phase("25/35 Monitor: one short episode")
     t = time.perf_counter()
     facade["monitor"] = monitor_phase(dev)
     seconds["25"] = time.perf_counter() - t
-    phase("26/34 python -m multi_car_racing_tpu_torch.train: 3 updates, an evaluation, "
+    phase("26/35 python -m multi_car_racing_tpu_torch.train: 3 updates, an evaluation, "
           "a checkpoint, then --resume")
     t = time.perf_counter()
     facade["train_cli"] = train_cli_phase()
@@ -3006,38 +3223,39 @@ def main() -> int:
     facade["seconds"] = seconds
     phase(f"phases 23-26 took {time.perf_counter() - t23:.1f} s: " + ", ".join(
         f"phase {k} {v:.1f} s" for k, v in seconds.items()))
-    phase(f"27/34 tracks generated on the card: a checked pool of {GEN_POOL}, device_reset at "
+    phase(f"27/35 tracks generated on the card: a checked pool of {GEN_POOL}, device_reset at "
           f"E={E}, N=2, and one attempt on the card against the CPU on the same uniforms")
     t = time.perf_counter()
     generation = generation_phase(smi, dev)
     seconds = {"27": time.perf_counter() - t}
-    phase(f"28/34 VectorMultiCarRacing on the card: E={E}, N=2, obs=pixels, time limit "
+    phase(f"28/35 VectorMultiCarRacing on the card: E={E}, N=2, obs=pixels, time limit "
           f"{VEC_LIMIT}, {VEC_STEPS} steps")
     t = time.perf_counter()
     vector = {"pixels": vector_phase("pixels", 2, smi, dev)}
     seconds["28"] = time.perf_counter() - t
-    phase(f"29/34 VectorMultiCarRacing on the card: obs=state at N=1 (K1), obs=none at N=2")
+    phase(f"29/35 VectorMultiCarRacing on the card: obs=state at N=1 (K1), obs=none at N=2")
     t = time.perf_counter()
     vector["state"] = vector_phase("state", 1, smi, dev)
     vector["none"] = vector_phase("none", 2, smi, dev)
     seconds["29"] = time.perf_counter() - t
-    phase(f"30/34 K2 and K3 past shared memory: the scratch layout at N={NARROW_NS} and "
-          f"N={WIDE_NS}, E={WIDE_E}, against the plain versions")
+    phase(f"30/35 K2 and K3 past shared memory: the scratch layout at N={NARROW_NS} and "
+          f"N={WIDE_NS}, and past one car a lane at N={PAST_WARP_NS}, E={WIDE_E}, against the "
+          f"plain versions")
     t = time.perf_counter()
-    wide = wide_contact_phase(dev, smi)
+    wide, wide_states_past = wide_contact_phase(dev, smi)
     seconds["30"] = time.perf_counter() - t
     phase("phases 27-30 took " + ", ".join(f"phase {k} {v:.1f} s" for k, v in seconds.items()))
-    phase(f"31/34 a world of one over NCCL in this process: the state recipe, {DP_UPDATES} "
+    phase(f"31/35 a world of one over NCCL in this process: the state recipe, {DP_UPDATES} "
           f"updates, against the same updates without a world")
     t = time.perf_counter()
     dp = {"world_of_one": world_of_one_phase(smi, dev)}
     seconds = {"31": time.perf_counter() - t}
-    phase(f"32/34 {DP_RANKS} ranks sharing the card over gloo (processes): the state recipe "
+    phase(f"32/35 {DP_RANKS} ranks sharing the card over gloo (processes): the state recipe "
           f"(1 update) and the pixel recipe ({DP_UPDATES} updates, a checkpoint)")
     t = time.perf_counter()
     dp["two_ranks"] = two_rank_phase(smi, dev, dp["world_of_one"]["runs"]["one process"])
     seconds["32"] = time.perf_counter() - t
-    phase(f"33/34 demo.py on the card: {DEMO_STEPS} steps at N=2, a GIF")
+    phase(f"33/35 demo.py on the card: {DEMO_STEPS} steps at N=2, a GIF")
     t = time.perf_counter()
     dp["demo"] = demo_phase(dev)
     seconds["33"] = time.perf_counter() - t
@@ -3050,11 +3268,24 @@ def main() -> int:
                   "warp_bytes": r["warp_bytes"], "max_err_over_bar": max(
                       v for key, v in r["max_err_over_bar"].items() if key.startswith(name))}
             for lab, r in wide.items() if "k2" in r}
-    phase(f"34/34 report: every phase passed in {time.perf_counter() - start:.1f} s")
+    phase(f"34/35 past 32 cars an env: K4/K5 and K6 against plain at N={PAST_WARP_NS}, "
+          f"E={WIDE_E}, and MultiCarRacing-v0 with num_agents={PAST_WARP_NS[0]} on the card")
+    t = time.perf_counter()
+    past_warp = past_warp_phase(wide_states_past, dev, smi)
+    phase(f"phase 34 took {time.perf_counter() - t:.1f} s")
+    for k, name in ((k2, "k2"), (k3, "k3"), (k45, "k4_k5"), (k6, "k6")):
+        src = wide if name in ("k2", "k3") else past_warp
+        k["past_32_cars"] = {
+            f"N={n}": {f: src[f"N={n}"][name][f] for f in ("ms", "plain_ms", "bound_ms",
+                                                            "bound_by")}
+            for n in PAST_WARP_NS}
+    for k, name in ((k2, "k2"), (k45, "k4_k5"), (k6, "k6")):
+        k["past_32_cars"]["facade_launches"] = past_warp["facade"]["launches"][name]
+    phase(f"35/35 report: every phase passed in {time.perf_counter() - start:.1f} s")
     print(json.dumps({"learner": learner}), flush=True)
     print(json.dumps({"facade": facade}), flush=True)
     print(json.dumps({"generation": generation, "vector": vector,
-                      "past_shared_memory": wide}), flush=True)
+                      "past_shared_memory": wide, "past_32_cars": past_warp}), flush=True)
     print(json.dumps({"data_parallel": dp}), flush=True)
     print(json.dumps({"kernels": [k1, k2, k3, k45, k6], "rollout": rollout,
                       "pixel_main_path": {k: v for k, v in px_run.items()},

@@ -18,7 +18,7 @@ a change in it.
     its time, and its time with 0/0 and 180/0 velocity/position iterations
     (the tire model, warm start and integration; the velocity loop), and the
     share of 32-car warps whose cars differ in a joint's limit state;
-  - K2 and K3, on the seven inputs below: the same bytes as the parent's,
+  - K2 and K3, on the inputs below: the same bytes as the parent's,
     two launches identical, every far env's cars out of K2 byte-equal to
     the same cars through K1, K2's near count against ``near_flags``, and
     K3's live count and list against ``solve_live_envs`` (a version whose
@@ -53,10 +53,11 @@ The K2/K3 inputs (E = 4096, N = 2 unless named): chip_smoke.py's phase 6
 state; the N = 2 main path's last; all-far (phase 6's cars, car 1 of every
 env moved 500 m); the N = 2 spawn tick; all-near (the spawn tick, car 1
 pulled to 2.7 m of car 0); N = 4 at E = 1024 driven until 10% of envs are
-near; the N = 4 rear-end ram (E = 1); N = 6 and N = 8 at E = 64 driven
-until a quarter of the envs are near and a car-car contact happened
+near; the N = 4 rear-end ram (E = 1); N = 6, 8, 10, 12 and 32 at E = 64
+driven until a quarter of the envs are near and a car-car contact happened
 (chip_smoke.wide_states; at N = 8 a warp carries 40 bodies, more than its
-lanes). Kernel times are device time per launch: 50 launches captured in
+lanes; from N = 10 on a warp's arrays sit in the global scratch; N = 32 is
+the most cars of one car a lane). Kernel times are device time per launch: 50 launches captured in
 a CUDA graph (chip_smoke.graph_ms). Prints
 one line per input and writes the whole report to
 ``multi_car_racing_tpu_torch/_build/compare/compare_<mode>.json``. Imports
@@ -133,9 +134,22 @@ class Version:
         self.k1, self.k2, self.k3, self.k45 = (built[n][0] for n in KERNELS)
         self.ptxas = {n: b[1] for n, b in built.items()}
         self.lists = len(types["solve_island"]) >= 25     # K3 takes the live-env list
-        # K2 and K3 take a scratch buffer: pass none (the shared layout, N <= 9).
-        self.scratch = [0, 0] if len(types["contact_island"]) == 25 else []
+        self.takes_scratch = len(types["contact_island"]) == 25
         self.near_count = self.near_list = self.live_count = self.live_list = None
+
+    def scratch(self, n: int, envs: int, dev) -> list:
+        """K2's and K3's scratch arguments at ``n`` cars: none for a version
+        that takes none; none (the shared layout) while a warp's arrays fit a
+        block's shared memory (N <= 9 on an H100); else a slot of
+        ``fw.warp_floats(n)`` floats per env (up to N = 32 both versions'
+        layout)."""
+        if not self.takes_scratch:
+            return []
+        floats = fw.warp_floats(n)
+        if 4 * floats <= torch.cuda.get_device_properties(dev).shared_memory_per_block_optin:
+            return [0, 0]
+        self.slots = torch.empty(envs * floats, device=dev)     # kept alive past the launch
+        return [self.slots.data_ptr(), envs]
 
     def joints(self, fin, ls_in, vel: int = 180, pos: int = 60):
         fout = torch.empty((fw.OUT_ROWS["N_OUT"], fin.shape[1]), device=fin.device)
@@ -162,7 +176,7 @@ class Version:
                      ls_out.data_ptr(), ni.data_ptr(), ti.data_ptr(), ids.data_ptr(),
                      fw._params(dev).data_ptr(), ctab.data_ptr(), itab.data_ptr(),
                      self.near_list.data_ptr(), self.near_count.data_ptr(),
-                     envs, n, mm, 180, 60, 180, 60, *self.scratch,
+                     envs, n, mm, 180, 60, 180, 60, *self.scratch(n, envs, dev),
                      torch.cuda.current_stream().cuda_stream)
         if rc:
             raise RuntimeError(f"{self.tag} contact_island launch failed ({rc})")
@@ -192,9 +206,11 @@ class Version:
             self.live_list = torch.empty(envs, dtype=torch.int32, device=dev)
             self.live_count = torch.empty(1, dtype=torch.int32, device=dev)
             lists = [self.live_list.data_ptr(), self.live_count.data_ptr()]
+        scratch = (self.scratch(n, envs, dev) if mm
+                   else [0, 0] if self.takes_scratch else [])    # no bundle: no scratch
         rc = self.k3(fin.data_ptr(), ls_in.data_ptr(), *rows, fout.data_ptr(),
                      ls_out.data_ptr(), *out_imp, fw._params(dev).data_ptr(), *tabs, *lists,
-                     envs, n, mm, 180, 60, 180, 60, *self.scratch,
+                     envs, n, mm, 180, 60, 180, 60, *scratch,
                      torch.cuda.current_stream().cuda_stream)
         if rc:
             raise RuntimeError(f"{self.tag} solve_island launch failed ({rc})")
@@ -264,7 +280,8 @@ def inputs(dev) -> dict:
             "ram (N=4, E=1)": ((apply_controls(ram.cars, ram_act), ram.wheel_on_road,
                                 ram.contacts), 4),
             **{f"N={n}, E={cs.WIDE_E}": ((lambda st: (st.cars, st.wheel_on_road, st.contacts))(
-                cs.wide_states(n, cs.WIDE_E, dev)[2]), n) for n in cs.NARROW_NS}}
+                cs.wide_states(n, cs.WIDE_E, dev)[2]), n)
+               for n in cs.NARROW_NS + cs.WIDE_NS + (fw.LANE_CARS,)}}
 
 
 def k1_inputs(dev, contact_inputs: dict) -> dict:

@@ -1,7 +1,8 @@
 // The per-car chain of the physics island, shared by the port's island
 // kernels (one car per thread in joints_island.cu, contact_island.cu's far
 // pass and solve_island.cu's dead cars; one car per lane of an env's warp in
-// contact_island.cu's near pass and solve_island.cu's live envs): the tire
+// contact_island.cu's near pass and solve_island.cu's live envs, or past 32
+// cars several a lane, each in turn from its slot): the tire
 // model with force integration (cd:172-266) -- or, for solve_island.cu, the
 // force integration of a car the tire model has already run on -- the
 // revolute-joint limit init, the joints' warm start and velocity iterations,

@@ -35,7 +35,9 @@
 //    Above N = 9 they do not fit a block's shared memory: the same arrays
 //    sit in a global scratch slot per resident warp (contact_rows.cuh), one
 //    warp a block, each warp looping over the list with the grid's stride.
-//    The count is never read on the host.
+//    Above N = 32 (kLaneCars) a lane carries cars lane, lane + 32, ..., each
+//    car's chain state in the warp's slot (the kWide instance). The count is
+//    never read on the host.
 //
 // What bounds it. The joints chain is K1's (~5.4e4 fp32 ops per car). A near
 // env adds the SAT of every row (~580 ops), the clipping of each live row
@@ -330,7 +332,9 @@ far_pass_kernel(const float* __restrict__ fin, const int* __restrict__ lsin,
 // The near pass: one warp per env of the near list.
 // ---------------------------------------------------------------------------
 
-// Near env e on this warp, whose arrays are at S.
+// Near env e on this warp, whose arrays are at S. kWide (N > kLaneCars):
+// the lane's cars in their slots (contact_rows.cuh).
+template <bool kWide>
 __device__ __forceinline__ void near_env(
     int e, int lane, float* S, const float* __restrict__ fin, const int* __restrict__ lsin,
     const float* __restrict__ pni, const float* __restrict__ pti,
@@ -351,12 +355,20 @@ __device__ __forceinline__ void near_env(
   for (int q = 0; q < N_PARAMS; ++q) p[q] = prm[q];
 
   Car car;
-  if (has_car) car_begin(car, fin, lsin, ci, sn, p);
-
-  // ---- pre-solve poses and the force-integrated velocities.
-  if (has_car) {
-    put_velocities(car, sh, b0);
-    put_positions(car, sh, b0);
+  // ---- the tire model, the pre-solve poses and the force-integrated
+  // velocities.
+  if constexpr (kWide) {
+    each_car(sh, N, lane, [&](Car& c, JointK&, int n) {
+      car_begin(c, fin, lsin, static_cast<size_t>(e) * N + n, sn, p);
+      put_velocities(c, sh, 5 * n);
+      put_positions(c, sh, 5 * n);
+    });
+  } else {
+    if (has_car) car_begin(car, fin, lsin, ci, sn, p);
+    if (has_car) {
+      put_velocities(car, sh, b0);
+      put_positions(car, sh, b0);
+    }
   }
   __syncwarp();
   for (int b = lane; b < NB; b += 32) {
@@ -384,17 +396,26 @@ __device__ __forceinline__ void near_env(
   }
   __syncwarp();
 
-  solve_contact_island<true>(car, has_car, b0, sh, itab, ctab, p, NB, MM, lane, vel_iters,
-                             pos_iters, k_vel, k_pos);
-  if (has_car) car_store(car, fout, lsout, ci, sn);
+  if constexpr (kWide) {
+    solve_contact_island_wide(sh, itab, ctab, p, N, MM, lane, vel_iters, pos_iters, k_vel,
+                              k_pos);
+    each_car(sh, N, lane, [&](Car& c, JointK&, int n) {
+      car_store(c, fout, lsout, static_cast<size_t>(e) * N + n, sn);
+    });
+  } else {
+    solve_contact_island<true>(car, has_car, b0, sh, itab, ctab, p, NB, MM, lane, vel_iters,
+                               pos_iters, k_vel, k_pos);
+    if (has_car) car_store(car, fout, lsout, ci, sn);
+  }
   store_impulses(sh, nio, tio, row0, MM, lane);
 }
 
 // kScratch false: warp w of the grid takes list entry w, its arrays in the
 // block's dynamic shared memory. kScratch true (one warp a block, for N whose
 // arrays do not fit a block's shared memory): warp w's arrays are slot w of
-// `scratch`, and it takes entries w, w + the grid's warps, ...
-template <bool kScratch>
+// `scratch`, and it takes entries w, w + the grid's warps, ... kWide (with
+// kScratch, N > kLaneCars): a lane carries several cars.
+template <bool kScratch, bool kWide>
 __global__ void __launch_bounds__(32 * kWarpsPerBlock)
 near_pass_kernel(const float* __restrict__ fin, const int* __restrict__ lsin,
                  const float* __restrict__ pni, const float* __restrict__ pti,
@@ -412,15 +433,16 @@ near_pass_kernel(const float* __restrict__ fin, const int* __restrict__ lsin,
   const int w = blockIdx.x * warps_per_block + warp;
   if constexpr (!kScratch) {
     if (w >= *near_count) return;           // whole warps only
-    near_env(near_list[w], lane, smem + static_cast<size_t>(warp) * warp_smem_floats(N, MM),
-             fin, lsin, pni, pti, pids, fout, lsout, nio, tio, idso, prm, ctab, itab, E, N,
-             MM, vel_iters, pos_iters, k_vel, k_pos);
+    near_env<false>(near_list[w], lane,
+                    smem + static_cast<size_t>(warp) * warp_smem_floats(N, MM), fin, lsin, pni,
+                    pti, pids, fout, lsout, nio, tio, idso, prm, ctab, itab, E, N, MM, vel_iters,
+                    pos_iters, k_vel, k_pos);
   } else {
-    float* S = scratch + static_cast<size_t>(w) * warp_smem_floats(N, MM);
+    float* S = scratch + static_cast<size_t>(w) * warp_floats(N, MM);
     const int count = *near_count, stride = gridDim.x * warps_per_block;
     for (int i = w; i < count; i += stride) {  // the same count on every lane
-      near_env(near_list[i], lane, S, fin, lsin, pni, pti, pids, fout, lsout, nio, tio,
-               idso, prm, ctab, itab, E, N, MM, vel_iters, pos_iters, k_vel, k_pos);
+      near_env<kWide>(near_list[i], lane, S, fin, lsin, pni, pti, pids, fout, lsout, nio,
+                      tio, idso, prm, ctab, itab, E, N, MM, vel_iters, pos_iters, k_vel, k_pos);
       __syncwarp();                         // the slot's last reads before the next env
     }
   }
@@ -433,15 +455,17 @@ extern "C" {
 // The scratch the launch needs for E envs of N cars (MM rows each): 0 when
 // one warp's arrays fit a block's shared memory on the current device (the
 // launch takes no scratch); else the slots, the near pass's resident warps
-// (at most E), each of contact_island_warp_floats(N, MM) floats. Negative: a
-// CUDA error code.
+// (at most E), each of contact_island_warp_floats(N, MM) floats (the
+// wrapper may take fewer: fused_world.scratch_slots). Negative: a CUDA error
+// code.
 int contact_island_scratch_warps(int E, int N, int MM) {
   if (warp_fits_shared(N, MM)) return 0;
-  return resident_warps(near_pass_kernel<true>, E);
+  return N > kLaneCars ? resident_warps(near_pass_kernel<true, true>, E)
+                       : resident_warps(near_pass_kernel<true, false>, E);
 }
 
 long long contact_island_warp_floats(int N, int MM) {
-  return static_cast<long long>(warp_smem_floats(N, MM));
+  return static_cast<long long>(warp_floats(N, MM));
 }
 
 // Launches the island on `stream` for E envs of N >= 2 cars (MM manifold rows
@@ -450,7 +474,8 @@ long long contact_island_warp_floats(int N, int MM) {
 // zeroed here and holds the number of near envs after the launch. With
 // scratch_warps = 0 the near pass keeps each warp's arrays in shared memory
 // (refused when they do not fit a block's); with scratch_warps > 0, in
-// `scratch`, scratch_warps slots of contact_island_warp_floats(N, MM) floats.
+// `scratch`, scratch_warps slots of contact_island_warp_floats(N, MM) floats,
+// whose offsets within a slot are ints (refused past INT_MAX floats a slot).
 // Returns the CUDA error after the launches (0 on success); does not
 // synchronise.
 int contact_island_launch(const float* fin, const int* lsin, const float* pni,
@@ -461,8 +486,8 @@ int contact_island_launch(const float* fin, const int* lsin, const float* pni,
                           int pos_iters, int k_vel, int k_pos, float* scratch,
                           int scratch_warps, void* stream) {
   if (E <= 0) return 0;
-  if (N < 2 || N > 32 || MM != N * (N - 1) / 2 * 48 || scratch_warps < 0
-      || (scratch_warps > 0) != (scratch != nullptr)
+  if (N < 2 || MM != N * (N - 1) / 2 * 48 || warp_floats(N, MM) > kMaxSlotFloats
+      || scratch_warps < 0 || (scratch_warps > 0) != (scratch != nullptr)
       || (scratch_warps == 0 && !warp_fits_shared(N, MM))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -477,22 +502,28 @@ int contact_island_launch(const float* fin, const int* lsin, const float* pni,
   if (err != cudaSuccess) return static_cast<int>(err);
 
   if (scratch_warps > 0) {
-    near_pass_kernel<true><<<scratch_warps, 32, 0, st>>>(
-        fin, lsin, pni, pti, pids, fout, lsout, nio, tio, idso, prm, ctab, itab, near_list,
-        near_count, E, N, MM, vel_iters, pos_iters, k_vel, k_pos, 1, scratch);
+    if (N > kLaneCars) {
+      near_pass_kernel<true, true><<<scratch_warps, 32, 0, st>>>(
+          fin, lsin, pni, pti, pids, fout, lsout, nio, tio, idso, prm, ctab, itab, near_list,
+          near_count, E, N, MM, vel_iters, pos_iters, k_vel, k_pos, 1, scratch);
+    } else {
+      near_pass_kernel<true, false><<<scratch_warps, 32, 0, st>>>(
+          fin, lsin, pni, pti, pids, fout, lsout, nio, tio, idso, prm, ctab, itab, near_list,
+          near_count, E, N, MM, vel_iters, pos_iters, k_vel, k_pos, 1, scratch);
+    }
     return static_cast<int>(cudaGetLastError());
   }
   const size_t per_warp = warp_smem_floats(N, MM) * sizeof(float);
   const int warps = fit_warps_per_block(per_warp, kWarpsPerBlock);
   const size_t smem = warps * per_warp;
   if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(near_pass_kernel<false>,
+    err = cudaFuncSetAttribute(near_pass_kernel<false, false>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   const int blocks = (E + warps - 1) / warps;
-  near_pass_kernel<false><<<blocks, 32 * warps, smem, st>>>(
+  near_pass_kernel<false, false><<<blocks, 32 * warps, smem, st>>>(
       fin, lsin, pni, pti, pids, fout, lsout, nio, tio, idso, prm, ctab, itab, near_list,
       near_count, E, N, MM, vel_iters, pos_iters, k_vel, k_pos, warps, nullptr);
   return static_cast<int>(cudaGetLastError());

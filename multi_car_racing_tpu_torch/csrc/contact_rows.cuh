@@ -9,12 +9,26 @@
 // sub-passes, and the island solve that interleaves them with the car lanes'
 // joint iterations (b2Island order).
 //
-// One warp per env. Lanes 0..N-1 each carry one car (car_chain.cuh). Body
+// One warp per env. Up to N = 32, lanes 0..N-1 each carry one car
+// (car_chain.cuh; past 32 cars, see below). Body
 // velocities and positions (5N slots, car*5 + j, j = 0 hull, 1..4 wheels)
 // and the rows' solver constants (row r of the env's MM = N(N-1)/2 * 48
 // manifold rows at index r) live in the warp's arrays (Shared); the car
 // lanes write their bodies there before each contact sub-pass and read them
 // back after.
+//
+// Past kLaneCars = 32 cars an env (the kWide instances), lane l carries cars
+// l, l + 32, ...: each car's chain state (a CarSlot: its Car and JointK)
+// lives in the warp's arrays, and every per-car step of the b2Island order
+// (car_begin, put/get_velocities, joints_warm_start, joints_velocity,
+// integrate, put/get_positions, joints_position, car_store) loops over the
+// lane's cars, loading the car's state, stepping it and storing it back
+// (each_car). A car's joint iterations touch only its own bodies, so each
+// car's arithmetic and its order are those of one car a lane. The packed
+// lists widen with it: a live row's index and its two body slots take a word
+// each (lrow, lbody) where one word packs them up to N = 32 (row < 2^16,
+// body < 2^8), and a body's table offset and live-entry count take a word
+// each (lspan, lcount). N <= 32 compiles to the one-car-a-lane code.
 //
 // Where the warp's arrays live. In shared memory while one warp's arrays fit
 // the opt-in shared memory of a block (smem_optin_bytes: 232,448 bytes on an
@@ -90,10 +104,36 @@ enum RowArr { R_NX, R_NY, R_RAX0, R_RAY0, R_RAX1, R_RAY1, R_RBX0, R_RBY0,
               N_ROW_ARRS };
 enum SolveScalar { S_FRICTION, S_BAUMGARTE, S_SLOP, S_MAX_CORR, N_SOLVE_SCALARS };
 
+// The most cars an env that one car a lane carries; past it, the kWide
+// instances.
+constexpr int kLaneCars = 32;
+
+// A car's chain state in the warp's arrays (kWide): its Car and the joints'
+// K-matrix terms of the velocity phase.
+struct CarSlot {
+  Car car;
+  JointK jk;
+};
+static_assert(sizeof(CarSlot) % sizeof(float) == 0, "CarSlot is whole floats");
+constexpr int kCarSlotFloats = static_cast<int>(sizeof(CarSlot) / sizeof(float));
+
 // Floats of one warp's shared arrays at N cars and MM rows.
 __host__ __device__ constexpr size_t warp_smem_floats(int N, int MM) {
   return static_cast<size_t>(N_BODY_ARRS + 1) * 5 * N + static_cast<size_t>(N_ROW_ARRS + 4) * MM
          + N_SOLVE_SCALARS;
+}
+
+// The most floats of one warp's arrays: offsets within them are ints.
+constexpr size_t kMaxSlotFloats = 0x7fffffff;
+
+// Floats of one warp's arrays at N cars and MM rows, with the kWide
+// instances' lbody (MM), lcount (5N) and car slots (N) past N = kLaneCars
+// (fused_world.warp_floats is the same count).
+__host__ __device__ constexpr size_t warp_floats(int N, int MM) {
+  return warp_smem_floats(N, MM)
+         + (N > kLaneCars ? static_cast<size_t>(MM) + 5 * static_cast<size_t>(N)
+                                + static_cast<size_t>(kCarSlotFloats) * N
+                          : 0);
 }
 
 // One warp's shared arrays, addressed by index so that a subscript known
@@ -113,6 +153,15 @@ struct Shared {
   __device__ __forceinline__ int* lspan() const { return live() + 4 * MM; }
   __device__ __forceinline__ float* scalars() const {
     return reinterpret_cast<float*>(lspan() + NB);
+  }
+  // kWide only: each live row's two body slots (body_a | body_b << 16), each
+  // body's live-entry count, and the cars' slots.
+  __device__ __forceinline__ int* lbody() const {
+    return reinterpret_cast<int*>(scalars() + N_SOLVE_SCALARS);
+  }
+  __device__ __forceinline__ int* lcount() const { return lbody() + MM; }
+  __device__ __forceinline__ CarSlot* cars() const {
+    return reinterpret_cast<CarSlot*>(lcount() + NB);
   }
 };
 
@@ -198,12 +247,20 @@ __device__ __forceinline__ void put_row(const Shared& sh, int r, int ba, int bb,
 // Every body b (lane-strided) adds the deltas of its live rows, in the
 // routing table's fixed order: x += (sum_B dp - sum_A dp) * inv_m,
 // a += (sum_B dlb - sum_A dla) * inv_i.
+template <bool kWide>
 __device__ __forceinline__ void apply_to_bodies(float* bx, float* by, float* ba,
                                                 const Shared& sh, int NB, int lane) {
   for (int b = lane; b < NB; b += 32) {
-    const int span = sh.lspan()[b];
-    const int* ent = sh.lent() + (span & 0xffff);
-    const int cnt = span >> 16;
+    int beg, cnt;
+    if constexpr (kWide) {
+      beg = sh.lspan()[b];
+      cnt = sh.lcount()[b];
+    } else {
+      const int span = sh.lspan()[b];
+      beg = span & 0xffff;
+      cnt = span >> 16;
+    }
+    const int* ent = sh.lent() + beg;
     float sbx = 0.f, sby = 0.f, sbw = 0.f, sax = 0.f, say = 0.f, saw = 0.f;
     for (int q = 0; q < cnt; ++q) {
       const int e = ent[q];
@@ -281,6 +338,7 @@ __device__ __forceinline__ void apply_resident(float* bx, float* by, float* ba,
 // count; the bodies' inverse masses and inertias; the contact scalars.
 // Returns L, the number of live rows (the same on every lane). Ends with a
 // __syncwarp.
+template <bool kWide>
 __device__ __forceinline__ int build_live_lists(const Shared& sh, const int* __restrict__ itab,
                                                 const float* __restrict__ ctab, int NB,
                                                 int MM, int lane) {
@@ -294,9 +352,15 @@ __device__ __forceinline__ int build_live_lists(const Shared& sh, const int* __r
     const bool live = r < MM && sh.live()[r] != 0;
     const unsigned m = __ballot_sync(kFull, live);
     if (live) {
-      sh.lrow()[L + __popc(m & ((1u << lane) - 1u))] =
-          static_cast<unsigned>(r) | (static_cast<unsigned>(body_a[r]) << 16)
-          | (static_cast<unsigned>(body_b[r]) << 24);
+      if constexpr (kWide) {
+        const int i = L + __popc(m & ((1u << lane) - 1u));
+        sh.lrow()[i] = static_cast<unsigned>(r);
+        sh.lbody()[i] = body_a[r] | (body_b[r] << 16);
+      } else {
+        sh.lrow()[L + __popc(m & ((1u << lane) - 1u))] =
+            static_cast<unsigned>(r) | (static_cast<unsigned>(body_a[r]) << 16)
+            | (static_cast<unsigned>(body_b[r]) << 24);
+      }
     }
     L += __popc(m);
   }
@@ -307,7 +371,12 @@ __device__ __forceinline__ int build_live_lists(const Shared& sh, const int* __r
       const int e = entries[q];
       if (sh.live()[e >> 1] != 0) sh.lent()[beg + cnt++] = e;
     }
-    sh.lspan()[b] = beg | (cnt << 16);
+    if constexpr (kWide) {
+      sh.lspan()[b] = beg;
+      sh.lcount()[b] = cnt;
+    } else {
+      sh.lspan()[b] = beg | (cnt << 16);
+    }
     const bool hull = b % 5 == 0;
     sh.b(B_IM)[b] = hull ? ctab[C_INV_M_HULL] : ctab[C_INV_M_WHEEL];
     sh.b(B_II)[b] = hull ? ctab[C_INV_I_HULL] : ctab[C_INV_I_WHEEL];
@@ -336,10 +405,8 @@ struct Row {
   float nx, ny, rax[2], ray[2], rbx[2], rby[2], nm[2], tm[2], sep[2], ni[2], ti[2];
 };
 
-__device__ __forceinline__ void load_row(Row& w, const Shared& sh, unsigned pk) {
-  w.r = live_row(pk);
-  w.ba = live_body_a(pk);
-  w.bb = live_body_b(pk);
+// Row w.r's constants and impulses, its body slots set.
+__device__ __forceinline__ void load_row_at(Row& w, const Shared& sh) {
   const int r = w.r;
   w.live = sh.live()[r];
   w.nx = sh.r(R_NX)[r];
@@ -355,6 +422,27 @@ __device__ __forceinline__ void load_row(Row& w, const Shared& sh, unsigned pk) 
     w.sep[k] = sh.r(R_SEP0 + k)[r];
     w.ni[k] = sh.r(R_NI0 + k)[r];
     w.ti[k] = sh.r(R_TI0 + k)[r];
+  }
+}
+
+__device__ __forceinline__ void load_row(Row& w, const Shared& sh, unsigned pk) {
+  w.r = live_row(pk);
+  w.ba = live_body_a(pk);
+  w.bb = live_body_b(pk);
+  load_row_at(w, sh);
+}
+
+// Live row i of the compact list.
+template <bool kWide>
+__device__ __forceinline__ void load_live_row(Row& w, const Shared& sh, int i) {
+  if constexpr (kWide) {
+    w.r = static_cast<int>(sh.lrow()[i]);
+    const int bodies = sh.lbody()[i];
+    w.ba = bodies & 0xffff;
+    w.bb = bodies >> 16;
+    load_row_at(w, sh);
+  } else {
+    load_row(w, sh, sh.lrow()[i]);
   }
 }
 
@@ -427,6 +515,7 @@ __device__ __forceinline__ void row_position(const Row& w, const Shared& sh, int
 }
 
 // The contact warm start (point 0, then point 1) on the shared velocities.
+template <bool kWide>
 __device__ __forceinline__ void contact_warm_start(const Shared& sh, int L, int NB, int lane,
                                                    bool resident, const Row& mine,
                                                    const BodyList& bl) {
@@ -437,7 +526,7 @@ __device__ __forceinline__ void contact_warm_start(const Shared& sh, int L, int 
     } else {
       for (int i = lane; i < L; i += 32) {
         Row w;
-        load_row(w, sh, sh.lrow()[i]);
+        load_live_row<kWide>(w, sh, i);
         row_warm(w, sh, k);
       }
     }
@@ -445,7 +534,7 @@ __device__ __forceinline__ void contact_warm_start(const Shared& sh, int L, int 
     if (resident) {
       apply_resident(sh.b(B_VX), sh.b(B_VY), sh.b(B_W), sh, bl, NB, lane);
     } else {
-      apply_to_bodies(sh.b(B_VX), sh.b(B_VY), sh.b(B_W), sh, NB, lane);
+      apply_to_bodies<kWide>(sh.b(B_VX), sh.b(B_VY), sh.b(B_W), sh, NB, lane);
     }
     __syncwarp();
   }
@@ -453,6 +542,7 @@ __device__ __forceinline__ void contact_warm_start(const Shared& sh, int L, int 
 
 // One velocity iteration's contact sub-passes on the shared velocities:
 // friction at points 0 and 1, then normal at points 0 and 1.
+template <bool kWide>
 __device__ __forceinline__ void contact_velocity_subpasses(const Shared& sh, int L, int NB,
                                                            int lane, bool resident, Row& mine,
                                                            const BodyList& bl) {
@@ -466,7 +556,7 @@ __device__ __forceinline__ void contact_velocity_subpasses(const Shared& sh, int
     } else {
       for (int i = lane; i < L; i += 32) {
         Row w;
-        load_row(w, sh, sh.lrow()[i]);
+        load_live_row<kWide>(w, sh, i);
         row_velocity(w, sh, k, normal, friction);
         if (normal) {
           sh.r(R_NI0 + k)[w.r] = w.ni[k];
@@ -479,7 +569,7 @@ __device__ __forceinline__ void contact_velocity_subpasses(const Shared& sh, int
     if (resident) {
       apply_resident(sh.b(B_VX), sh.b(B_VY), sh.b(B_W), sh, bl, NB, lane);
     } else {
-      apply_to_bodies(sh.b(B_VX), sh.b(B_VY), sh.b(B_W), sh, NB, lane);
+      apply_to_bodies<kWide>(sh.b(B_VX), sh.b(B_VY), sh.b(B_W), sh, NB, lane);
     }
     __syncwarp();
   }
@@ -487,6 +577,7 @@ __device__ __forceinline__ void contact_velocity_subpasses(const Shared& sh, int
 
 // One position iteration's contact sub-passes (points 0 and 1) on the shared
 // positions.
+template <bool kWide>
 __device__ __forceinline__ void contact_position_subpasses(const Shared& sh, int L, int NB,
                                                            int lane, bool resident,
                                                            const Row& mine, const BodyList& bl) {
@@ -499,7 +590,7 @@ __device__ __forceinline__ void contact_position_subpasses(const Shared& sh, int
     } else {
       for (int i = lane; i < L; i += 32) {
         Row w;
-        load_row(w, sh, sh.lrow()[i]);
+        load_live_row<kWide>(w, sh, i);
         row_position(w, sh, k, baumgarte, slop, max_corr);
       }
     }
@@ -507,7 +598,7 @@ __device__ __forceinline__ void contact_position_subpasses(const Shared& sh, int
     if (resident) {
       apply_resident(sh.b(B_CX), sh.b(B_CY), sh.b(B_A), sh, bl, NB, lane);
     } else {
-      apply_to_bodies(sh.b(B_CX), sh.b(B_CY), sh.b(B_A), sh, NB, lane);
+      apply_to_bodies<kWide>(sh.b(B_CX), sh.b(B_CY), sh.b(B_A), sh, NB, lane);
     }
     __syncwarp();
   }
@@ -531,14 +622,14 @@ __device__ __forceinline__ void solve_contact_island(Car& car, bool has_car, int
                                                      const float* p, int NB, int MM, int lane,
                                                      int vel_iters, int pos_iters, int k_vel,
                                                      int k_pos) {
-  const int L = build_live_lists(sh, itab, ctab, NB, MM, lane);
+  const int L = build_live_lists<false>(sh, itab, ctab, NB, MM, lane);
   BodyList bl;
   if (kResident && lane < NB) load_body_list(bl, sh, lane);
   const bool resident = kResident && L <= 32 && NB <= 32
                         && !__any_sync(kFull, lane < NB && bl.cnt > kBodyEntries);
   Row mine;
   if (resident && lane < L) load_row(mine, sh, sh.lrow()[lane]);
-  contact_warm_start(sh, L, NB, lane, resident, mine, bl);
+  contact_warm_start<false>(sh, L, NB, lane, resident, mine, bl);
   JointK jk;
   if (has_car) {
     get_velocities(car, sh, b0);
@@ -550,7 +641,7 @@ __device__ __forceinline__ void solve_contact_island(Car& car, bool has_car, int
     if (it >= k_vel) continue;
     if (has_car) put_velocities(car, sh, b0);
     __syncwarp();
-    contact_velocity_subpasses(sh, L, NB, lane, resident, mine, bl);
+    contact_velocity_subpasses<false>(sh, L, NB, lane, resident, mine, bl);
     if (has_car) get_velocities(car, sh, b0);
   }
   if (has_car) integrate(car, p);
@@ -559,12 +650,70 @@ __device__ __forceinline__ void solve_contact_island(Car& car, bool has_car, int
     if (it < k_pos) {
       if (has_car) put_positions(car, sh, b0);
       __syncwarp();
-      contact_position_subpasses(sh, L, NB, lane, resident, mine, bl);
+      contact_position_subpasses<false>(sh, L, NB, lane, resident, mine, bl);
       if (has_car) get_positions(car, sh, b0);
     }
     if (has_car) joints_position(car, p);
   }
   if (resident && lane < L) store_row_impulses(mine, sh);
+  __syncwarp();
+}
+
+// kWide: f(car, jk, c) on each of this lane's cars c = lane, lane + 32, ...
+// < N, the car loaded from its slot and stored back after (jk is the slot's).
+template <class F>
+__device__ __forceinline__ void each_car(const Shared& sh, int N, int lane, F f) {
+  for (int c = lane; c < N; c += kLaneCars) {
+    CarSlot& slot = sh.cars()[c];
+    Car car = slot.car;
+    f(car, slot.jk, c);
+    slot.car = car;
+  }
+}
+
+// solve_contact_island past kLaneCars cars an env: the same steps in the
+// same order, each per-car step over the lane's cars in their slots (the
+// cars after force integration and limit init, their velocities and poses
+// in the body arrays); the lists are always walked in the warp's arrays.
+__device__ __forceinline__ void solve_contact_island_wide(const Shared& sh,
+                                                          const int* __restrict__ itab,
+                                                          const float* __restrict__ ctab,
+                                                          const float* p, int N, int MM,
+                                                          int lane, int vel_iters,
+                                                          int pos_iters, int k_vel,
+                                                          int k_pos) {
+  const int NB = 5 * N;
+  const int L = build_live_lists<true>(sh, itab, ctab, NB, MM, lane);
+  Row mine;            // unused: the rows stay in the warp's arrays
+  BodyList bl;
+  contact_warm_start<true>(sh, L, NB, lane, false, mine, bl);
+  each_car(sh, N, lane, [&](Car& car, JointK& jk, int c) {
+    get_velocities(car, sh, 5 * c);
+    joints_warm_start(car, jk, p);
+  });
+#pragma unroll 1
+  for (int it = 0; it < vel_iters; ++it) {
+    const bool contact = it < k_vel;
+    each_car(sh, N, lane, [&](Car& car, JointK& jk, int c) {
+      joints_velocity(car, jk, p);
+      if (contact) put_velocities(car, sh, 5 * c);
+    });
+    if (!contact) continue;
+    __syncwarp();
+    contact_velocity_subpasses<true>(sh, L, NB, lane, false, mine, bl);
+    each_car(sh, N, lane, [&](Car& car, JointK&, int c) { get_velocities(car, sh, 5 * c); });
+  }
+  each_car(sh, N, lane, [&](Car& car, JointK&, int) { integrate(car, p); });
+#pragma unroll 1
+  for (int it = 0; it < pos_iters; ++it) {
+    if (it < k_pos) {
+      each_car(sh, N, lane, [&](Car& car, JointK&, int c) { put_positions(car, sh, 5 * c); });
+      __syncwarp();
+      contact_position_subpasses<true>(sh, L, NB, lane, false, mine, bl);
+      each_car(sh, N, lane, [&](Car& car, JointK&, int c) { get_positions(car, sh, 5 * c); });
+    }
+    each_car(sh, N, lane, [&](Car& car, JointK&, int) { joints_position(car, p); });
+  }
   __syncwarp();
 }
 

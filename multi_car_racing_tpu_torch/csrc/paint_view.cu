@@ -123,7 +123,6 @@ constexpr int kCells = 4 * kPatches;
 constexpr int kPix = kCell * kCell / 32;         // pixels per lane per cell
 constexpr int kRowStep = 32 / kCell;             // rows between a lane's pixels
 constexpr float kCullRel = 1.52587890625e-05f;   // 2^-16
-constexpr int kMaxCars = 32;
 constexpr int kQW = 16, kPW = 28;        // slot row widths: 4 and 8 edges
 constexpr int kRects = 8, kRectW = 8;
 constexpr int kGlyphs = 4, kGlyphW = 8;
@@ -623,10 +622,12 @@ extern "C" {
 
 // Launches the painter on `stream` for E envs of n_cars views each: sq
 // windowed quad slots, s8 (4 n_cars, or 4 n_cars + 1 with the flag) 8-edge
-// slots, mt padded tiles, npal palette colours. Returns cudaGetLastError()
-// after the launch (0 on success, cudaErrorInvalidValue for shapes it does
-// not take or tables that do not fit its shared memory); does not
-// synchronise.
+// slots, mt padded tiles, npal palette colours. Any n_cars whose view tables
+// fit a block's shared memory (layout: ~1 KB a car; at sq = 80, mt = 384
+// and 21 colours up to 180 cars, render/pixels.py :: max_paint_cars).
+// Returns cudaGetLastError() after the launch (0 on success,
+// cudaErrorInvalidValue for shapes it does not take or tables that do not
+// fit its shared memory); does not synchronise.
 int paint_view_launch(const float* cam, const float* quads, const float* q4, const float* p8,
                       const float* rects, const int* score, const float* quad,
                       const float* curb_quad, const unsigned char* touched,
@@ -635,7 +636,7 @@ int paint_view_launch(const float* cam, const float* quads, const float* q4, con
                       unsigned char* out, int num_envs, int n_cars, int sq, int s8, int mt,
                       int npal, float wx_scale, float wy_scale, float playfield,
                       float checker_k, void* stream) {
-  if (n_cars < 1 || n_cars > kMaxCars || sq < 0 || mt < 0 || npal < 1 ||
+  if (n_cars < 1 || sq < 0 || mt < 0 || npal < 1 ||
       (s8 != 4 * n_cars && s8 != 4 * n_cars + 1))
     return static_cast<int>(cudaErrorInvalidValue);
   const int s4 = 8 * n_cars;

@@ -36,7 +36,9 @@
 //    warp's arrays do not fit a block's shared memory, as many blocks as
 //    the solve pass keeps resident follow the dead ones instead, each with
 //    a slot of a global scratch buffer, looping over the list. Lanes
-//    0..N-1 carry the cars' chains in registers, the MM rows are spread
+//    0..N-1 carry the cars' chains in registers (above N = 32, kLaneCars,
+//    lane l carries cars l, l + 32, ..., each car's chain state in the
+//    warp's slot: the kWide instance), the MM rows are spread
 //    over the lanes, bodies and row constants sit in the warp's arrays
 //    (shared memory, or the scratch slot), the solve walks only
 //    the live rows and each body's live routing entries, and every
@@ -154,6 +156,8 @@ __device__ __forceinline__ void solve_dead_car(int i, int e, int n, size_t sn, i
 }
 
 // Env e, which has a live point, on this warp (its shared arrays at S).
+// kWide (N > kLaneCars): the lane's cars in their slots (contact_rows.cuh).
+template <bool kWide>
 __device__ __forceinline__ void solve_live_env(
     int e, int lane, float* S, size_t sn, const float* __restrict__ fin,
     const int* __restrict__ lsin, const float* __restrict__ normal,
@@ -173,9 +177,11 @@ __device__ __forceinline__ void solve_live_env(
   for (int q = 0; q < N_PARAMS; ++q) p[q] = prm[q];
 
   Car car;
-  if (has_car) car_begin_solved(car, fin, lsin, ci, sn, p);
-
   const Shared sh{S, NB, MM};
+  if constexpr (!kWide) {
+    if (has_car) car_begin_solved(car, fin, lsin, ci, sn, p);
+  }
+
   const size_t row0 = static_cast<size_t>(e) * MM;
   for (int r = lane; r < MM; r += 32) {
     const size_t g = row0 + r;
@@ -184,9 +190,17 @@ __device__ __forceinline__ void solve_live_env(
 
   // ---- pre-solve poses (the centres of mass at init) and the
   // force-integrated velocities.
-  if (has_car) {
-    put_velocities(car, sh, b0);
-    put_positions(car, sh, b0);
+  if constexpr (kWide) {
+    each_car(sh, N, lane, [&](Car& c, JointK&, int n) {
+      car_begin_solved(c, fin, lsin, static_cast<size_t>(e) * N + n, sn, p);
+      put_velocities(c, sh, 5 * n);
+      put_positions(c, sh, 5 * n);
+    });
+  } else {
+    if (has_car) {
+      put_velocities(car, sh, b0);
+      put_positions(car, sh, b0);
+    }
   }
   __syncwarp();
   for (int b = lane; b < NB; b += 32) {
@@ -206,9 +220,17 @@ __device__ __forceinline__ void solve_live_env(
   }
   __syncwarp();
 
-  solve_contact_island<false>(car, has_car, b0, sh, itab, ctab, p, NB, MM, lane, vel_iters,
-                             pos_iters, k_vel, k_pos);
-  if (has_car) car_store_solved(car, fout, lsout, ci, sn);
+  if constexpr (kWide) {
+    solve_contact_island_wide(sh, itab, ctab, p, N, MM, lane, vel_iters, pos_iters, k_vel,
+                              k_pos);
+    each_car(sh, N, lane, [&](Car& c, JointK&, int n) {
+      car_store_solved(c, fout, lsout, static_cast<size_t>(e) * N + n, sn);
+    });
+  } else {
+    solve_contact_island<false>(car, has_car, b0, sh, itab, ctab, p, NB, MM, lane, vel_iters,
+                               pos_iters, k_vel, k_pos);
+    if (has_car) car_store_solved(car, fout, lsout, ci, sn);
+  }
   store_impulses(sh, nio, tio, row0, MM, lane);
 }
 
@@ -216,8 +238,9 @@ __device__ __forceinline__ void solve_live_env(
 // the blocks after: list entry blockIdx.x - dead_blocks (a live env) on the
 // warp, or nothing past the count. kScratch (for N whose arrays do not fit a
 // block's shared memory): live block w's arrays are slot w of `scratch`, and
-// it takes entries w, w + live_blocks, ...
-template <bool kScratch>
+// it takes entries w, w + live_blocks, ... kWide (with kScratch, N >
+// kLaneCars): a lane carries several cars.
+template <bool kScratch, bool kWide>
 __global__ void __launch_bounds__(32)
 solve_pass_kernel(const float* __restrict__ fin, const int* __restrict__ lsin,
                   const float* __restrict__ normal, const float* __restrict__ point,
@@ -237,16 +260,16 @@ solve_pass_kernel(const float* __restrict__ fin, const int* __restrict__ lsin,
   if (w >= 0) {
     if constexpr (!kScratch) {
       if (w >= *live_count) return;           // whole warps only
-      solve_live_env(live_list[w], lane, smem, sn, fin, lsin, normal, point, sep, ok, ni_in,
-                     ti_in, fout, lsout, nio, tio, prm, ctab, itab, N, MM, vel_iters,
-                     pos_iters, k_vel, k_pos);
+      solve_live_env<false>(live_list[w], lane, smem, sn, fin, lsin, normal, point, sep, ok,
+                            ni_in, ti_in, fout, lsout, nio, tio, prm, ctab, itab, N, MM,
+                            vel_iters, pos_iters, k_vel, k_pos);
     } else {
-      float* S = scratch + static_cast<size_t>(w) * warp_smem_floats(N, MM);
+      float* S = scratch + static_cast<size_t>(w) * warp_floats(N, MM);
       const int count = *live_count, stride = static_cast<int>(gridDim.x) - dead_blocks;
       for (int i = w; i < count; i += stride) {  // the same count on every lane
-        solve_live_env(live_list[i], lane, S, sn, fin, lsin, normal, point, sep, ok, ni_in,
-                       ti_in, fout, lsout, nio, tio, prm, ctab, itab, N, MM, vel_iters,
-                       pos_iters, k_vel, k_pos);
+        solve_live_env<kWide>(live_list[i], lane, S, sn, fin, lsin, normal, point, sep, ok,
+                              ni_in, ti_in, fout, lsout, nio, tio, prm, ctab, itab, N, MM,
+                              vel_iters, pos_iters, k_vel, k_pos);
         __syncwarp();                       // the slot's last reads before the next env
       }
     }
@@ -267,15 +290,16 @@ extern "C" {
 // The scratch the launch needs for E envs of N cars with MM bundle rows each:
 // 0 when one warp's arrays fit a block's shared memory on the current device
 // (or MM = 0: no bundle); else the slots, the solve pass's resident warps (at
-// most E), each of solve_island_warp_floats(N, MM) floats. Negative: a CUDA
-// error code.
+// most E), each of solve_island_warp_floats(N, MM) floats (the wrapper may
+// take fewer: fused_world.scratch_slots). Negative: a CUDA error code.
 int solve_island_scratch_warps(int E, int N, int MM) {
   if (MM == 0 || warp_fits_shared(N, MM)) return 0;
-  return resident_warps(solve_pass_kernel<true>, E);
+  return N > kLaneCars ? resident_warps(solve_pass_kernel<true, true>, E)
+                       : resident_warps(solve_pass_kernel<true, false>, E);
 }
 
 long long solve_island_warp_floats(int N, int MM) {
-  return static_cast<long long>(warp_smem_floats(N, MM));
+  return static_cast<long long>(warp_floats(N, MM));
 }
 
 // Launches the solve on `stream` for E envs of N cars, with MM = N(N-1)/2 *
@@ -286,7 +310,8 @@ long long solve_island_warp_floats(int N, int MM) {
 // the number of live envs after the launch. With scratch_warps = 0 a live
 // warp keeps its arrays in shared memory (refused when they do not fit a
 // block's); with scratch_warps > 0 (a bundle only), in `scratch`,
-// scratch_warps slots of solve_island_warp_floats(N, MM) floats.
+// scratch_warps slots of solve_island_warp_floats(N, MM) floats, whose
+// offsets within a slot are ints (refused past INT_MAX floats a slot).
 // Returns the CUDA error after the launches (0 on success); does not
 // synchronise.
 int solve_island_launch(const float* fin, const int* lsin, const float* normal,
@@ -296,7 +321,8 @@ int solve_island_launch(const float* fin, const int* lsin, const float* normal,
                         const int* itab, int* live_list, int* live_count, int E, int N,
                         int MM, int vel_iters, int pos_iters, int k_vel, int k_pos,
                         float* scratch, int scratch_warps, void* stream) {
-  if (E < 0 || N < 1 || N > 32 || (MM != 0 && (N < 2 || MM != N * (N - 1) / 2 * 48))
+  if (E < 0 || N < 1 || (MM != 0 && (N < 2 || MM != N * (N - 1) / 2 * 48))
+      || (MM != 0 && warp_floats(N, MM) > kMaxSlotFloats)
       || scratch_warps < 0 || (scratch_warps > 0) != (scratch != nullptr)
       || (scratch_warps > 0 && MM == 0)
       || (MM != 0 && scratch_warps == 0 && !warp_fits_shared(N, MM))) {
@@ -317,20 +343,27 @@ int solve_island_launch(const float* fin, const int* lsin, const float* normal,
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   if (scratch_warps > 0) {
-    solve_pass_kernel<true><<<dead_blocks + scratch_warps, 32, 0, st>>>(
-        fin, lsin, normal, point, sep, ok, ni_in, ti_in, fout, lsout, nio, tio, prm, ctab,
-        itab, live_list, live_count, E, N, MM, vel_iters, pos_iters, k_vel, k_pos,
-        dead_blocks, scratch);
+    if (N > kLaneCars) {
+      solve_pass_kernel<true, true><<<dead_blocks + scratch_warps, 32, 0, st>>>(
+          fin, lsin, normal, point, sep, ok, ni_in, ti_in, fout, lsout, nio, tio, prm, ctab,
+          itab, live_list, live_count, E, N, MM, vel_iters, pos_iters, k_vel, k_pos,
+          dead_blocks, scratch);
+    } else {
+      solve_pass_kernel<true, false><<<dead_blocks + scratch_warps, 32, 0, st>>>(
+          fin, lsin, normal, point, sep, ok, ni_in, ti_in, fout, lsout, nio, tio, prm, ctab,
+          itab, live_list, live_count, E, N, MM, vel_iters, pos_iters, k_vel, k_pos,
+          dead_blocks, scratch);
+    }
     return static_cast<int>(cudaGetLastError());
   }
   if (MM != 0 && smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(solve_pass_kernel<false>,
+    err = cudaFuncSetAttribute(solve_pass_kernel<false, false>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   const int blocks = dead_blocks + (MM != 0 ? E : 0);
-  solve_pass_kernel<false><<<blocks, 32, MM != 0 ? smem : 0, st>>>(
+  solve_pass_kernel<false, false><<<blocks, 32, MM != 0 ? smem : 0, st>>>(
       fin, lsin, normal, point, sep, ok, ni_in, ti_in, fout, lsout, nio, tio, prm, ctab, itab,
       live_list, live_count, E, N, MM, vel_iters, pos_iters, k_vel, k_pos, dead_blocks,
       nullptr);

@@ -42,8 +42,9 @@
 //    tests and the fresh-tile, visitor-count and bonus bookkeeping, and
 //    ballots gather the wheel and on-grass bits. A tile off the list cannot
 //    overlap a wheel or hold an origin, so it keeps the masks copied before
-//    the first car. The visitor counts `past` (the car-id tie-break) and
-//    `touched` live in shared memory and advance in car order.
+//    the first car. The visitor counts `past` (the car-id tie-break; 16
+//    bits, so up to 65,535 cars) and `touched` live in shared memory and
+//    advance in car order.
 //  - the bonus and the argmin reduce by shuffles in a fixed order, so two
 //    launches on one input give the same bits.
 // Masks, counts, nearest_beta and on_grass equal the plain version's; the
@@ -69,8 +70,8 @@ namespace {
 constexpr int kEnvsPerBlock = 4;            // one warp per env
 constexpr int kThreads = 32 * kEnvsPerBlock;
 constexpr int kMinBlocks = 8;               // 32 warps an SM: E = 4096 in one wave
-constexpr int kMaxCars = 32;
-constexpr int kSmemPerTile = 9;             // reach (4), list entry (2), past, touched, flag
+constexpr int kSmemPerTile = 10;            // reach (4), past (2), list entry (2), touched, flag
+constexpr int kMaxCars = 65535;             // `past` counts a tile's visitors in 16 bits
 constexpr unsigned kFull = 0xffffffffu;
 
 // a0*b0 + a1*b1, each operation rounded on its own.
@@ -133,9 +134,9 @@ track_pass_kernel(const float* __restrict__ quad_T, const float* __restrict__ ax
   const int e = blockIdx.x * kEnvsPerBlock + warp;
   if (e >= num_envs) return;            // the whole warp: nothing below waits on it
   float* reach = reinterpret_cast<float*>(reinterpret_cast<unsigned char*>(smem) + warp * stride);
-  unsigned short* list = reinterpret_cast<unsigned short*>(reach + mt);   // (mt)
-  unsigned char* past = reinterpret_cast<unsigned char*>(list + mt);      // (mt)
-  unsigned char* touched = past + mt;                                     // (mt)
+  unsigned short* past = reinterpret_cast<unsigned short*>(reach + mt);   // (mt)
+  unsigned short* list = reinterpret_cast<unsigned short*>(past + mt);    // (mt)
+  unsigned char* touched = reinterpret_cast<unsigned char*>(list + mt);   // (mt)
   unsigned char* near_post = touched + mt;                                // (mt) per list entry
 
   const size_t m = static_cast<size_t>(mt);
@@ -173,7 +174,7 @@ track_pass_kernel(const float* __restrict__ quad_T, const float* __restrict__ ax
       VOUT[n * m + t] = v;
       c += v;
     }
-    past[t] = static_cast<unsigned char>(c);
+    past[t] = static_cast<unsigned short>(c);
     touched[t] = tt_in[em + t];
   }
   __syncwarp();
@@ -312,7 +313,7 @@ track_pass_kernel(const float* __restrict__ quad_T, const float* __restrict__ ax
         VOUT[n * m + t] = 1;
         const float p = static_cast<float>(past[t]);
         sum = __fadd_rn(sum, __fsub_rn(1.0f, __fdiv_rn(p, fn)));
-        past[t] = static_cast<unsigned char>(past[t] + 1);
+        past[t] = static_cast<unsigned short>(past[t] + 1);
       }
       cnt += __popc(__ballot_sync(kFull, fresh));
     }
@@ -345,10 +346,12 @@ track_pass_kernel(const float* __restrict__ quad_T, const float* __restrict__ ax
 
 extern "C" {
 
-// Launches the track pass on `stream` for E envs of n_cars cars and mt
-// padded tiles. Returns cudaGetLastError() after the launch (0 on success,
-// cudaErrorInvalidValue for a car count or tile count it does not take);
-// does not synchronise.
+// Launches the track pass on `stream` for E envs of 1 <= n_cars <= kMaxCars
+// cars and mt padded tiles, whose per-tile arrays must fit 48 KB a block
+// (kSmemPerTile bytes a tile, four envs a block: mt <= 1228;
+// track_engine.track_smem_bytes). Returns
+// cudaGetLastError() after the launch (0 on success, cudaErrorInvalidValue
+// for a car count or tile count it does not take); does not synchronise.
 int track_pass_launch(const float* quad_T, const float* ax_T, const float* quad_lo,
                       const float* quad_hi, const float* curb_T, const float* xy,
                       const float* beta, const unsigned char* valid, const int* n_tiles,

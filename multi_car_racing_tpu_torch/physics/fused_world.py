@@ -389,15 +389,18 @@ def near_flags(cars: CarState) -> torch.Tensor:
         return ((torch.abs(ax - bx) <= ahx + bhx + BP_SLACK)
                 & (torch.abs(ay - by) <= ahy + bhy + BP_SLACK))
 
-    near = torch.zeros_like(cars.hull_a[:, 0], dtype=torch.bool)
-    for (a, b) in collide.car_pairs(n):
-        ha = (hull_cx[:, a, None], hull_cy[:, a, None], hull_hx[:, a, None], hull_hy[:, a, None])
-        hb = (hull_cx[:, b, None], hull_cy[:, b, None], hull_hx[:, b, None], hull_hy[:, b, None])
-        wa = (wx[:, a], wy[:, a], whx[:, a], why[:, a])
-        wb = (wx[:, b], wy[:, b], whx[:, b], why[:, b])
-        near = (near | overlap(*ha, *hb)[:, 0] | overlap(*ha, *wb).any(-1)
-                | overlap(*wa, *hb).any(-1))
-    return near
+    pairs = collide.car_pairs(n)
+    if not pairs:
+        return torch.zeros_like(cars.hull_a[:, 0], dtype=torch.bool)
+    a, b = (torch.as_tensor(x, device=cars.hull_a.device) for x in zip(*pairs))
+    hull = (hull_cx, hull_cy, hull_hx, hull_hy)                     # (E, N) each
+    wheel = (wx, wy, whx, why)                                      # (E, N, 4) each
+    ha = [x[:, a, None] for x in hull]                              # (E, P, 1)
+    hb = [x[:, b, None] for x in hull]
+    wa = [x[:, a] for x in wheel]                                   # (E, P, 4)
+    wb = [x[:, b] for x in wheel]
+    hit = overlap(*ha, *hb)[..., 0] | overlap(*ha, *wb).any(-1) | overlap(*wa, *hb).any(-1)
+    return hit.any(-1)
 
 
 # ---------------------------------------------------------------------------
@@ -451,15 +454,69 @@ def _contact_tables(device: torch.device, num_cars: int):
     return _params_cache[key]
 
 
-# K2 and K3 run one car per lane of a warp: at most 32 cars per env.
-MAX_WARP_CARS = 32
-_scratch_plans: dict = {}     # (kernel, device, E, N) -> scratch slots asked of the card
+# K2's and K3's warp arrays (csrc/contact_rows.cuh :: warp_floats): the
+# counts of its body arrays, row arrays and solve scalars, the cars one lane
+# carries alone (LANE_CARS; past it a lane carries several, each car's chain
+# state in a CarSlot of CAR_SLOT_FLOATS floats: Car 67, JointK 72), and the
+# most floats of one warp's arrays (their offsets are ints).
+N_BODY_ARRS, N_ROW_ARRS, N_SOLVE_SCALARS = 14, 24, 4
+LANE_CARS = 32
+CAR_SLOT_FLOATS = 67 + 72
+MAX_SLOT_FLOATS = 2 ** 31 - 1
+# Past shared memory (N >= 10 on an H100) a K2 or K3 launch keeps each busy
+# warp's arrays in a global scratch slot; all its slots together take at most
+# this share of the card's memory.
+SCRATCH_SHARE = 1 / 8
+_scratch_plans: dict = {}     # (kernel, device, E, N) -> scratch slots taken
 
 
-def _check_warp_cars(label: str, num_cars: int) -> None:
-    if num_cars > MAX_WARP_CARS:
-        raise ValueError(f"{label}: {num_cars} cars per env; the contact kernels run one car "
-                         f"per lane of a warp, at most {MAX_WARP_CARS} cars per env")
+def warp_floats(num_cars: int) -> int:
+    """Floats of one K2 or K3 warp's arrays at ``num_cars`` cars per env
+    (two or more), as ``warp_floats`` in csrc/contact_rows.cuh counts them:
+    15 arrays of 5N body floats, 28 of MM row words and the solve scalars,
+    and past LANE_CARS cars the wide variant's lbody (MM), lcount (5N) and
+    car slots."""
+    mm = num_cars * (num_cars - 1) // 2 * collide.M_PER_PAIR
+    floats = (N_BODY_ARRS + 1) * 5 * num_cars + (N_ROW_ARRS + 4) * mm + N_SOLVE_SCALARS
+    if num_cars > LANE_CARS:
+        floats += mm + 5 * num_cars + CAR_SLOT_FLOATS * num_cars
+    return floats
+
+
+def scratch_slots(resident: int, num_cars: int, card_bytes: int) -> int:
+    """The scratch slots of one K2 or K3 launch past shared memory: the
+    kernel's resident warps (``resident``, at most E, as the card's
+    ``<kernel>_scratch_warps`` plans them), cut to as many slots of
+    :func:`warp_floats` floats as fit SCRATCH_SHARE of ``card_bytes``. Raises
+    ValueError naming the limit when one env's arrays exceed a slot's int
+    offsets or the share by themselves."""
+    floats = warp_floats(num_cars)
+    share = int(card_bytes * SCRATCH_SHARE)
+    if floats > MAX_SLOT_FLOATS or 4 * floats > share:
+        raise ValueError(
+            f"K2/K3 at {num_cars} cars per env: one env's contact arrays take {floats} floats "
+            f"({4 * floats} bytes); a scratch slot holds at most {MAX_SLOT_FLOATS} floats (int "
+            f"offsets) within the {SCRATCH_SHARE:g} share ({share} bytes) of the card's memory "
+            f"that K2 and K3 take as scratch (max_contact_cars: "
+            f"{max_contact_cars(card_bytes)})")
+    return min(resident, share // (4 * floats))
+
+
+def max_contact_cars(card_bytes: int) -> int:
+    """The most cars per env whose contact arrays fit one scratch slot on a
+    card of ``card_bytes``: at most MAX_SLOT_FLOATS floats and SCRATCH_SHARE
+    of its memory (1,756 cars on an 80 GB H100, where the int offsets bind)."""
+    def fits(n):
+        floats = warp_floats(n)
+        return floats <= MAX_SLOT_FLOATS and 4 * floats <= int(card_bytes * SCRATCH_SHARE)
+
+    lo, hi = 2, 4
+    while fits(hi):
+        lo, hi = hi, 2 * hi
+    while hi - lo > 1:                  # fits(lo), not fits(hi)
+        mid = (lo + hi) // 2
+        lo, hi = (mid, hi) if fits(mid) else (lo, mid)
+    return lo
 
 
 def _scratch(lib, name: str, dev: torch.device, envs: int, num_cars: int, mm: int,
@@ -468,8 +525,10 @@ def _scratch(lib, name: str, dev: torch.device, envs: int, num_cars: int, mm: in
     warp's arrays live in shared memory while they fit a block's on ``dev``
     (up to N = 9 on an H100); above that, in a global buffer of one slot per
     resident warp of the kernel (``{name}_scratch_warps``, asked of the
-    card). ``scratch_warps`` > 0 forces the global buffer with that many
-    slots (``chip_smoke.py`` holds the two layouts equal with it)."""
+    card), as many as fit SCRATCH_SHARE of its memory
+    (:func:`scratch_slots`). ``scratch_warps`` > 0 forces the global buffer
+    with that many slots (``chip_smoke.py`` holds the two layouts equal with
+    it)."""
     if scratch_warps is None:
         key = (name, str(dev), envs, num_cars)
         if key not in _scratch_plans:
@@ -478,6 +537,9 @@ def _scratch(lib, name: str, dev: torch.device, envs: int, num_cars: int, mm: in
             if plan < 0:
                 msg = getattr(lib, f"{name}_error_string")(-plan).decode()
                 raise RuntimeError(f"{name}: scratch query failed: {msg} ({-plan})")
+            if plan > 0:
+                plan = scratch_slots(plan, num_cars,
+                                     torch.cuda.get_device_properties(dev).total_memory)
             _scratch_plans[key] = plan
         scratch_warps = _scratch_plans[key]
     if scratch_warps <= 0:
@@ -621,8 +683,9 @@ def launch_contacts(fin: torch.Tensor, ls_in: torch.Tensor, cs: ContactState,
     """Launch K2 on packed car rows (from :func:`pack_inputs`, car index
     e*num_cars + n) and the contact carry, on the current stream; returns
     (fout (59, n), ls_out (4, n), new ContactState). Counts the launch in
-    ``island_step.contact_launches``. At most ``MAX_WARP_CARS`` cars per
-    env.
+    ``island_step.contact_launches``. Any number of cars per env whose
+    arrays fit a scratch slot (:func:`max_contact_cars`); past LANE_CARS a
+    lane of a near warp carries several cars.
 
     K2 is two kernels on the stream: the far pass (one thread per car) and
     the near pass (one warp per near env, from a list the far pass fills on
@@ -631,7 +694,6 @@ def launch_contacts(fin: torch.Tensor, ls_in: torch.Tensor, cs: ContactState,
     A near warp's arrays sit in shared memory or, where they do not fit a
     block's (N >= 10 on an H100), in a global scratch buffer
     (:func:`_scratch`; ``scratch_warps`` forces it)."""
-    _check_warp_cars("launch_contacts", num_cars)
     dev = fin.device
     n_cars = fin.shape[1]
     E = n_cars // num_cars
@@ -828,11 +890,10 @@ def launch_solve(fin: torch.Tensor, ls_in: torch.Tensor,
     call's list and count stay on the card, in the int32 tensors
     ``launch_solve.live_list`` (E) and ``launch_solve.live_count`` (1; the
     list's first count entries are the live envs, in no fixed order);
-    nothing here reads them. At most ``MAX_WARP_CARS`` cars per env; a live
-    warp's arrays sit in shared memory or, where they do not fit a block's
-    (N >= 10 on an H100), in a global scratch buffer (:func:`_scratch`;
-    ``scratch_warps`` forces it)."""
-    _check_warp_cars("launch_solve", num_cars)
+    nothing here reads them. A live warp's arrays sit in shared memory or,
+    where they do not fit a block's (N >= 10 on an H100), in a global
+    scratch buffer (:func:`_scratch`; ``scratch_warps`` forces it); past
+    LANE_CARS cars per env a lane carries several cars."""
     dev = fin.device
     n_cars = fin.shape[1] if fin.dim() == 2 else -1
     E = n_cars // num_cars if num_cars > 0 else 0

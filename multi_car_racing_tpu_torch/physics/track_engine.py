@@ -288,17 +288,43 @@ def _library():
     return lib
 
 
+# The kernel's shared memory (csrc/track_pass.cu): four envs a block, per
+# tile its reach (4 bytes), visitor count (2: at most TRACK_MAX_CARS cars),
+# list entry (2), touched flag and candidate flag, within the 48 KB a block
+# gets without opting in.
+TRACK_ENVS_PER_BLOCK = 4
+TRACK_SMEM_PER_TILE = 10
+TRACK_SMEM_LIMIT = 48 * 1024
+TRACK_MAX_CARS = 2 ** 16 - 1
+
+
+def track_smem_bytes(max_tiles: int) -> int:
+    """Shared memory of one block of the track kernel at ``max_tiles``
+    padded tiles (any number of cars up to TRACK_MAX_CARS): 15,360 bytes at
+    384."""
+    return TRACK_ENVS_PER_BLOCK * ((TRACK_SMEM_PER_TILE * max_tiles + 3) & ~3)
+
+
 def _check(track, pre_cars: CarState, post_origin, visited, tile_touched,
            num_agents: int):
     """Shapes, dtypes, device and contiguity of the kernel's inputs; raises
-    ValueError on anything it does not take (no silent copies). The kernel's
-    own caps (1..32 cars, the tiles that fit its shared memory) are checked
-    by its C entry point, whose error is raised by ``launch``."""
+    ValueError on anything it does not take (no silent copies): on more
+    cars than its 16-bit visitor counts hold (TRACK_MAX_CARS), and on a tile
+    count whose per-tile arrays do not fit its shared memory
+    (:func:`track_smem_bytes`)."""
     E, N = pre_cars.hull_a.shape
     MT = track.beta.shape[-1]
     dev = visited.device
     if N != num_agents:
         raise ValueError(f"track_pass: {N} cars per env under num_agents={num_agents}")
+    if N > TRACK_MAX_CARS:
+        raise ValueError(f"track_pass: {N} cars per env; the kernel counts a tile's visitors "
+                         f"in 16 bits, at most {TRACK_MAX_CARS} cars")
+    if track_smem_bytes(MT) > TRACK_SMEM_LIMIT:
+        most = TRACK_SMEM_LIMIT // (TRACK_ENVS_PER_BLOCK * TRACK_SMEM_PER_TILE)
+        raise ValueError(f"track_pass: {MT} padded tiles need {track_smem_bytes(MT)} bytes of "
+                         f"shared memory a block, more than the kernel's {TRACK_SMEM_LIMIT} "
+                         f"(at most {most} tiles)")
     f32, b = torch.float32, torch.bool
     want = dict(
         quad_T=(track.quad_T, f32, (E, 4, 2, MT)),

@@ -627,6 +627,37 @@ def paint_work(cfg, state) -> tuple[int, int]:
     return nbytes, flops
 
 
+# K6's shared memory (csrc/paint_view.cu :: layout): one block per view holds
+# the view's tables and its patches' candidate words, and a warm view's
+# track; at most PAINT_SMEM_LIMIT bytes a block (227 KB, an H100's opt-in).
+PAINT_SMEM_LIMIT = 227 * 1024
+PAINT_PATCHES = (H // 16) * (W // 16)
+PAINT_WARM_WORDS = 26             # a warm tile: 2 x 12 edge coefficients, 2 palettes
+
+
+def paint_smem_bytes(num_cars: int, max_tiles: int, flag: bool = True) -> int:
+    """Shared memory of one K6 block at ``num_cars`` views per env (the
+    kernel's ``layout``): the camera, SQ road, 8N wheel and 4N (+1 with the
+    backwards flag) hull slots, the HUD rects and glyphs, the palette, each
+    patch's road, car (12N bits) and flag words, and a warm view's
+    ``max_tiles`` tiles."""
+    s4, s8 = 8 * num_cars, 4 * num_cars + int(flag)
+    road_words = (max(SQ, 2 * max_tiles) + 31) // 32
+    car_words = (12 * num_cars + 31) // 32
+    words = (8 + SQ * QW + s4 * QW + s8 * PW + SR * 8 + 4 * 8 + len(R.PALETTE_U8)
+             + PAINT_PATCHES * (road_words + car_words + 1) + max_tiles * PAINT_WARM_WORDS)
+    return 4 * words
+
+
+def max_paint_cars(max_tiles: int) -> int:
+    """The most views per env K6 paints: the largest N whose block fits
+    PAINT_SMEM_LIMIT with the flag slot (180 at max_tiles = 384)."""
+    n = 1
+    while paint_smem_bytes(n + 1, max_tiles) <= PAINT_SMEM_LIMIT:
+        n += 1
+    return n
+
+
 def _library():
     from .. import _cuda
 
@@ -679,6 +710,11 @@ def _check(cam, quads, q4, p8, rects, score, quad, curb_quad, tile_touched, curb
             raise ValueError(f"paint_views: {name} must be a contiguous {dtype} {shape} "
                              f"on {dev}, got {t.dtype} {tuple(t.shape)} on {t.device}"
                              f"{'' if t.is_contiguous() else ', not contiguous'}")
+    need = paint_smem_bytes(n, MT, s8 > 4 * n)
+    if need > PAINT_SMEM_LIMIT:
+        raise ValueError(f"paint_views: {n} views per env need {need} bytes of shared memory a "
+                         f"block, more than K6's {PAINT_SMEM_LIMIT} (at most "
+                         f"{max_paint_cars(MT)} cars at {MT} tiles)")
     return E, n, MT
 
 

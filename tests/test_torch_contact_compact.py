@@ -64,6 +64,21 @@ def piled_cars(num_envs, seed, step=0.3, turn=0.15):
                        torch.as_tensor(ang, dtype=torch.float32))
 
 
+def piled_groups(n, num_envs, seed, step=0.3, turn=0.15, gap=25.0):
+    """``n`` cars per env at rest in groups of four (the last one short at
+    odd n), ``gap`` m apart, each group piled as ``piled_cars`` piles its
+    four: more than 32 live rows a group (chip_smoke.py's phase 30 input
+    past 32 cars)."""
+    rng = np.random.RandomState(seed)
+    g, k = np.arange(n) // 4, np.arange(n) % 4
+    c = k * (np.pi / 2)
+    pos = (rng.uniform(-300, 300, (num_envs, 1, 2)) + np.stack([gap * g, 0 * g], -1)[None]
+           + step * np.stack([np.cos(c), np.sin(c)], -1)[None])
+    ang = rng.uniform(-np.pi, np.pi, (num_envs, int(g[-1]) + 1))[:, g] + turn * k[None]
+    return create_cars(torch.as_tensor(pos, dtype=torch.float32),
+                       torch.as_tensor(ang, dtype=torch.float32))
+
+
 CASES = {
     "N=2 scattered": lambda: (synthetic_cars(2, 48, 3, 3.0), 2),
     "N=4 scattered": lambda: (synthetic_cars(4, 24, 4, 4.0), 4),
@@ -157,7 +172,8 @@ def test_contact_launch_signature_matches_the_wrapper():
     """contact_island_launch takes the 15 pointers and 7 ints, then the
     scratch buffer and its slots (and the stream) that fused_world._library
     types, the near list and its count among them; the near pass reads the
-    count on the card, in its shared-memory and its scratch build."""
+    count on the card, in its shared-memory and its scratch builds (one car a
+    lane, and several past 32 cars)."""
     src = (CSRC / "contact_island.cu").read_text()
     sig = re.search(r"int contact_island_launch\((.*?)\)\s*\{", src, re.S).group(1)
     params = [p.strip() for p in sig.split(",")]
@@ -168,5 +184,6 @@ def test_contact_launch_signature_matches_the_wrapper():
     assert any("near_list" in p for p in pointers)
     assert any("near_count" in p for p in pointers)
     assert "far_pass_kernel<<<" in src
-    assert "near_pass_kernel<false><<<" in src and "near_pass_kernel<true><<<" in src
+    assert "near_pass_kernel<false, false><<<" in src and "near_pass_kernel<true, false><<<" in src
+    assert "near_pass_kernel<true, true><<<" in src          # past 32 cars: a lane carries several
     assert "if (w >= *near_count) return;" in src and "i < count; i += stride" in src

@@ -8,6 +8,8 @@ PyTorch versions on an NVIDIA card. Imports no JAX, so it runs on a machine with
 card every test here skips."""
 
 import dataclasses
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -19,10 +21,11 @@ from multi_car_racing_tpu_torch.physics import world
 from multi_car_racing_tpu_torch.physics.state import apply_controls
 from multi_car_racing_tpu_torch.render import pixels
 from multi_car_racing_tpu_torch.util import tree_map
-from test_torch_contact_compact import piled_cars
+from test_torch_contact_compact import piled_cars, piled_groups
 from test_torch_paint_cull import jitter
 
 
+CSRC = Path(fused_world.__file__).parent.parent / "csrc"
 TOL = 5e-4
 STEP_FLOOR = 1e-3     # floor of the per-step-change scale
 CAR_FIELDS = ("hull_c", "hull_a", "hull_v", "hull_w", "wheel_c", "wheel_a",
@@ -206,14 +209,124 @@ def test_contact_kernels_scratch_layout_matches_plain(num_cars):
     _assert_bars("tangent_imp", p_bundle.tangent_imp, ti, bundle.tangent_imp)
 
 
-def test_contact_wrappers_refuse_more_cars_than_a_warp_has():
-    """K2 and K3 carry one car per lane: the wrappers refuse N = 33 with a
-    ValueError naming the limit, before any launch (no card needed)."""
-    z = torch.zeros(1)
-    with pytest.raises(ValueError, match="at most 32 cars"):
-        fused_world.launch_contacts(z, z, None, 33)
-    with pytest.raises(ValueError, match="at most 32 cars"):
-        fused_world.launch_solve(z, z, None, 33)
+def _struct_floats(name):
+    """Floats (and ints) of ``struct name`` in csrc/car_chain.cuh: each
+    declarator counts 1, or its array length."""
+    src = (CSRC / "car_chain.cuh").read_text()
+    body = re.search(r"struct %s \{(.*?)\};" % name, src, re.S).group(1)
+    return sum(int(m.group(2) or 1) for m in re.finditer(r"(\w+)(?:\[(\d+)\])?\s*[,;]", body))
+
+
+@pytest.mark.parametrize("num_cars", [33, 64])
+def test_contact_scratch_sizing_past_32_cars(num_cars):
+    """Past 32 cars an env K2 and K3 carry several cars a lane (no card
+    needed): fused_world.warp_floats is the kernels' count (the wide layout's
+    lbody, lcount and car slots of a Car and a JointK, counted from
+    csrc/car_chain.cuh, on top of N = 32's); scratch_slots takes the
+    resident warps up to SCRATCH_SHARE of the card's memory and names its
+    limit when one slot does not fit; the wrappers refuse a CPU tensor for
+    its device, not for its car count."""
+    mm = num_cars * (num_cars - 1) // 2 * 48
+    assert fused_world.CAR_SLOT_FLOATS == _struct_floats("Car") + _struct_floats("JointK") == 139
+    narrow = 15 * 5 * num_cars + 28 * mm + 4
+    assert fused_world.warp_floats(num_cars) == narrow + mm + 5 * num_cars + 139 * num_cars
+    assert 4 * fused_world.warp_floats(32) == 2676112 and 4 * fused_world.warp_floats(10) == 244936
+    card = 80 * 2 ** 30
+    slot = 4 * fused_world.warp_floats(num_cars)
+    assert fused_world.scratch_slots(10 ** 6, num_cars, card) == card // 8 // slot
+    assert fused_world.scratch_slots(64, num_cars, card) == 64
+    with pytest.raises(ValueError, match="share"):
+        fused_world.scratch_slots(64, num_cars, 7 * slot)
+    assert num_cars < fused_world.max_contact_cars(card) == 1756
+    assert fused_world.warp_floats(1757) > fused_world.MAX_SLOT_FLOATS
+    z = torch.zeros((71, 2 * num_cars))
+    with pytest.raises(ValueError, match="CUDA"):
+        fused_world.launch_contacts(z, z, None, num_cars)
+    with pytest.raises(ValueError, match="CUDA"):
+        fused_world.launch_solve(z[:58], z, None, num_cars)
+
+
+@pytest.mark.parametrize("kernel", ["track_pass", "paint_view"])
+def test_track_and_paint_limits_are_the_kernel_sources(kernel):
+    """The limits the wrappers raise by name, past which K4/K5 and K6 refuse
+    to launch, are the kernel sources' (no card needed): K4/K5's 16-bit
+    visitor counts and its bytes a tile and envs a block (1,228 tiles in 48
+    KB); K6's 227 KB a block, which its layout of 1 KB or so a car fills at
+    N = 181 with 384 tiles."""
+    src = (CSRC / f"{kernel}.cu").read_text()
+
+    def const(name):
+        return int(re.search(r"constexpr int %s = ([^;]+);" % name, src).group(1).split("*")[0])
+
+    if kernel == "track_pass":
+        assert const("kMaxCars") == track_engine.TRACK_MAX_CARS == 65535
+        assert const("kSmemPerTile") == track_engine.TRACK_SMEM_PER_TILE
+        assert const("kEnvsPerBlock") == track_engine.TRACK_ENVS_PER_BLOCK
+        assert track_engine.track_smem_bytes(1228) <= track_engine.TRACK_SMEM_LIMIT
+        assert track_engine.track_smem_bytes(1229) > track_engine.TRACK_SMEM_LIMIT
+    else:
+        assert "kMaxCars" not in src and "227 * 1024" in src
+        assert pixels.PAINT_SMEM_LIMIT == 227 * 1024
+        assert const("kWarmW") == pixels.PAINT_WARM_WORDS
+        assert pixels.max_paint_cars(384) == 180
+        assert pixels.paint_smem_bytes(180, 384) <= pixels.PAINT_SMEM_LIMIT
+        assert pixels.paint_smem_bytes(181, 384) > pixels.PAINT_SMEM_LIMIT
+        # N = 2's tables, as the kernel's layout counts them word by word.
+        assert pixels.paint_smem_bytes(2, 384) == 4 * (
+            8 + 80 * 16 + 16 * 16 + 9 * 28 + 64 + 32 + 21 + 36 * (24 + 1 + 1) + 384 * 26)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("num_cars", [33, 64])
+def test_contact_kernels_past_32_cars_match_plain(num_cars):
+    """K2 and K3 at N = 33 and 64, where a lane carries two cars (the wide
+    instances): against island_step_plain and world.world_step after 10 or
+    more driven steps (until a live contact), within both bars; the wrapper
+    chose the scratch, and a launch forced onto 3 slots is byte-equal to
+    it; two launches bit-identical. Then both on piled groups of four cars
+    at rest (hundreds of live rows an env, past row 2^16 at N = 64)."""
+    _need_card()
+    pile = piled_groups(num_cars, 4, 5)
+    pile = (tree_map(lambda x: x.cuda(), pile), torch.ones((4, num_cars, 4), dtype=torch.bool,
+                                                          device="cuda"),
+            collide.init_contact_state(4, num_cars, device="cuda"))
+    k, ks, kc = fused_world.island_step(*pile)
+    p, ps, pc = fused_world.island_step_plain(*pile)
+    torch.cuda.synchronize()
+    assert int(collide.collide(pile[0], num_cars).point_ok.any(-1).sum(1).min()) > 32
+    for f in CAR_FIELDS:
+        _assert_bars(f, getattr(p, f), getattr(k, f), getattr(pile[0], f))
+    _assert_bars("normal_imp", pc.normal_imp, kc.normal_imp, pile[2].normal_imp)
+    assert torch.equal(k.limit_state, p.limit_state)
+    assert int((kc.ids != pc.ids).any(1).sum()) <= 1 and int((ks != ps).sum()) <= 1
+    *_, post, force, motor, bundle, _, _ = _solve_from(*pile, num_cars)
+    _assert_solve_bars(post, force, motor, bundle, num_cars)
+
+    pre, on_road, cs = _contact_state(16, num_cars, steps=10)
+    k, ks, kc = fused_world.island_step(pre, on_road, cs)
+    p, ps, pc = fused_world.island_step_plain(pre, on_road, cs)
+    torch.cuda.synchronize()
+    assert int(fused_world.launch_contacts.near_count) > 0 and float(pc.normal_imp.max()) > 0
+    for f in CAR_FIELDS:
+        _assert_bars(f, getattr(p, f), getattr(k, f), getattr(pre, f))
+    _assert_bars("normal_imp", pc.normal_imp, kc.normal_imp, cs.normal_imp)
+    _assert_bars("tangent_imp", pc.tangent_imp, kc.tangent_imp, cs.tangent_imp)
+    assert torch.equal(k.limit_state, p.limit_state)
+    assert int((kc.ids != pc.ids).any(1).sum()) <= 1 and int((ks != ps).sum()) <= 1
+    fin, ls_in = fused_world.pack_inputs(pre, on_road)
+    a = fused_world.launch_contacts(fin, ls_in, cs, num_cars)
+    b = fused_world.launch_contacts(fin, ls_in, cs, num_cars, scratch_warps=3)
+    c = fused_world.launch_contacts(fin, ls_in, cs, num_cars)
+    for x, y, z in zip(*((o[0], o[1], o[2].normal_imp, o[2].tangent_imp, o[2].ids)
+                         for o in (a, b, c))):
+        assert torch.equal(x, y) and torch.equal(x, z)
+    *_, post, force, motor, bundle, _, _ = _solve_from(pre, on_road, cs, num_cars)
+    _assert_solve_bars(post, force, motor, bundle, num_cars)
+    fin3, ls3 = fused_world.pack_solve_inputs(post, force, motor)
+    a = fused_world.launch_solve(fin3, ls3, bundle, num_cars)
+    b = fused_world.launch_solve(fin3, ls3, bundle, num_cars, scratch_warps=3)
+    c = fused_world.launch_solve(fin3, ls3, bundle, num_cars)
+    assert all(torch.equal(x, y) and torch.equal(x, z) for x, y, z in zip(a, b, c))
 
 
 @pytest.mark.gpu
@@ -476,17 +589,34 @@ def test_track_wrapper_rejects_bad_inputs_on_card():
         track_engine.track_pass(track, pre, post, visited[:, :, :-1].contiguous(), touched, 2)
     with pytest.raises(ValueError):
         track_engine.track_pass(track, pre, post, visited, touched, 3)
-    # The caps are the C entry point's: 33 cars is refused with CUDA's message.
-    wheels = torch.zeros((4, 33, 4, 6), device="cuda")
-    origins = torch.zeros((4, 33, 4), device="cuda")
-    many = torch.zeros((4, 33, visited.shape[-1]), dtype=torch.bool, device="cuda")
-    with pytest.raises(RuntimeError, match="invalid argument"):
-        track_engine.launch(track, wheels, origins, many, touched)
+    # The caps left are its 16-bit visitor counts and the tiles whose arrays
+    # fit its shared memory (1,228), named by the wrapper.
+    extra = 1229 - track.max_tiles
+    wide = tree_map(lambda x: torch.cat([x, x[..., -1:].expand(*x.shape[:-1], extra)], -1)
+                    if x.dim() >= 2 and x.shape[-1] == track.max_tiles else x, track)
+    vis = torch.zeros((4, 2, 1229), dtype=torch.bool, device="cuda")
+    with pytest.raises(ValueError, match="shared memory"):
+        track_engine.track_pass(wide, pre, post, vis, vis[:, 0].contiguous(), 2)
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("num_cars", [1, 2, 4])
-@pytest.mark.parametrize("num_envs", [1, 37, 4096])
+@pytest.mark.parametrize("num_cars", [33, 64])
+def test_track_kernel_past_32_cars_matches_plain(num_cars):
+    """K4/K5 at N = 33 and 64 (64 envs, 12 driven steps): the track bars
+    against track_pass_plain, two launches bit-identical."""
+    _need_card()
+    args = _track_inputs(64, num_cars, 12)
+    k = track_engine.track_pass(*args, num_cars)
+    k2 = track_engine.track_pass(*args, num_cars)
+    p = track_engine.track_pass_plain(*args, num_cars)
+    torch.cuda.synchronize()
+    _assert_track_bars(k, p, k2, f"N={num_cars}")
+    assert bool(p[0].any()) and int(p[3].sum()) > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("num_envs,num_cars", [
+    (e, n) for n in (1, 2, 4) for e in (1, 37, 4096)] + [(3, 33), (2, 64)])
 def test_paint_kernel_matches_plain_on_card(num_envs, num_cars):
     """paint_view (K6) against paint_views_plain on the same card tensors,
     every byte equal, on a batch driven 12 steps (every view warm: the whole
@@ -545,14 +675,15 @@ def test_paint_wrapper_rejects_bad_inputs_on_card():
     refused(10, args[10].to(torch.uint8))                   # valid
     refused(3, args[3][:, :, :-2].contiguous())             # p8 short of a hull slot
     refused(6, args[6][:, :-1].contiguous())                # quad with a tile missing
-    # The kernel's own cap is its C entry point's: 33 cars is refused with
-    # CUDA's message.
-    E, n, mt = 1, 33, args[6].shape[1]
+    # The one cap left is the views whose tables fit a block's shared memory
+    # (180 cars at 384 tiles), named by the wrapper.
+    E, mt = 1, args[6].shape[1]
+    n = pixels.max_paint_cars(mt) + 1
     z = lambda *shape, dtype=torch.float32: torch.zeros(shape, dtype=dtype, device="cuda")
     many = (z(E, n, 8), z(E, n, pixels.SQ, 16), z(E, n, 8 * n, 16), z(E, n, 4 * n, 28),
             z(E, n, 8, 8), z(E, n, 4, 8, dtype=torch.int32), z(E, mt, 4, 2), z(E, mt, 4, 2),
             *(z(E, mt, dtype=torch.bool) for _ in range(4)))
-    with pytest.raises(RuntimeError, match="invalid argument"):
+    with pytest.raises(ValueError, match="shared memory"):
         pixels.paint_views(*many)
 
 

@@ -111,10 +111,12 @@ def test_solve_launch_signature_matches_the_wrapper(monkeypatch):
     assert params[-3:-1] == ["float* scratch", "int scratch_warps"]
     body = src[src.index("int solve_island_launch("):]
     assert body.index("if (MM != 0) {") < body.index("list_pass_kernel<<<")
-    assert body.index("list_pass_kernel<<<") < body.index("solve_pass_kernel<true><<<")
-    assert body.index("list_pass_kernel<<<") < body.index("solve_pass_kernel<false><<<")
+    assert body.index("list_pass_kernel<<<") < body.index("solve_pass_kernel<true, true><<<")
+    assert body.index("list_pass_kernel<<<") < body.index("solve_pass_kernel<true, false><<<")
+    assert body.index("list_pass_kernel<<<") < body.index("solve_pass_kernel<false, false><<<")
     assert "if (w >= *live_count) return;" in src and "i < count; i += stride" in src
-    assert "solve_live_env(live_list[w]," in src
+    assert "solve_live_env<false>(live_list[w]," in src
+    assert "solve_live_env<kWide>(live_list[i]," in src
 
     class Fn:
         argtypes = restype = None
