@@ -45,7 +45,9 @@ their warps carries two cars; phase 34 drives K4/K5 and K6 there and
 ``gym_api.make("MultiCarRacing-v0", num_agents=33)``. Phases 31-32 run the learner data
 parallel (``parallel/mesh.py``): a world of one over NCCL, and two ranks
 sharing the card over gloo, each launching K1, or K2, K4/K5 and K6, on its
-rows of the env batch; phase 33 runs ``demo.py``.
+rows of the env batch; phase 33 runs ``demo.py``. Phase 36 builds the
+native host track generator that every host reset uses and drives the
+track follower closed-loop through K2 and K4/K5 (``oracle/episodes.py``).
 
 K3 (``csrc/solve_island.cu``, the island solve alone from a ContactBundle
 made outside) is on none of those paths: its path is
@@ -283,8 +285,20 @@ on_grass, count and nearest_beta equal, bonus within 2e-5.
      observation against the plain painter
  35. the learner JSON line, the facade JSON line, the generation JSON line
      (phases 27-30 and 34), the data-parallel JSON line (phases 31-33), the
-     kernels JSON line (K2, K3, K4/K5 and K6 with their N = 33 and 64 times
-     under ``past_32_cars``), the nvidia-smi line, and the result line
+     phase-36 JSON line, the kernels JSON line (K2, K3, K4/K5 and K6 with
+     their N = 33 and 64 times under ``past_32_cars``), the nvidia-smi line,
+     and the result line
+ 36. (runs before phase 35's lines) the native host track generator
+     (native.py, csrc/trackgen.cpp, built with g++ on this machine): 16
+     tracks of seeds 16-23, two from each stream, bit-equal to the Python
+     walk with their retries, and the next 16 draws of each stream equal;
+     env.reset_batch takes its tracks from it (native.generate_track.calls).
+     Then oracle/episodes.run_episodes_closed: the track follower at N = 2,
+     E = 8 (seeds 100-103, both directions), 200 steps on the card, counts
+     zeroed before its reset: K2 = K4/K5 = 201 (the spawn tick and the
+     steps), nothing else; every car finite; the plain path on the CPU on
+     the same actions (run_episodes_open): rewards within 2e-5 per step
+     before each env's first car-car contact in either run
 
 The script imports nothing of JAX or of the JAX package.
 """
@@ -310,7 +324,8 @@ from multi_car_racing_tpu_torch import EnvConfig, _cuda, checkpoint, convert  # 
 from multi_car_racing_tpu_torch import config as C  # noqa: E402
 from multi_car_racing_tpu_torch.learner import evaluate, ppo as lppo  # noqa: E402
 from multi_car_racing_tpu_torch import env as penv, obs as pobs, seeding  # noqa: E402
-from multi_car_racing_tpu_torch import demo, gym_api, monitor, train  # noqa: E402
+from multi_car_racing_tpu_torch import demo, gym_api, monitor, native, train  # noqa: E402
+from multi_car_racing_tpu_torch.oracle import episodes as oep  # noqa: E402
 from multi_car_racing_tpu_torch.parallel import mesh  # noqa: E402
 from multi_car_racing_tpu_torch.render import pixels, raster  # noqa: E402
 from multi_car_racing_tpu_torch.physics import collide, fused_world  # noqa: E402
@@ -318,7 +333,7 @@ from multi_car_racing_tpu_torch.physics import tire, track_cases, track_engine  
 from multi_car_racing_tpu_torch.physics import world  # noqa: E402
 from multi_car_racing_tpu_torch.physics.collide import ContactState  # noqa: E402
 from multi_car_racing_tpu_torch.physics.state import apply_controls, create_cars  # noqa: E402
-from multi_car_racing_tpu_torch.track import device as tdev  # noqa: E402
+from multi_car_racing_tpu_torch.track import device as tdev, host as thost  # noqa: E402
 from multi_car_racing_tpu_torch.util import tree_leaves, tree_map  # noqa: E402
 
 E = 4096
@@ -433,6 +448,11 @@ DP_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "multi_car_rac
                       "_build", "chip_smoke_ranks")
 DP_METRIC_TOL = 1e-4            # tests/test_torch_multiprocess.py's bar on a metric
 DEMO_STEPS = 50
+# Phase 36: the native host track generator and a closed-loop follower run.
+TRACKGEN_SEEDS = tuple(range(16, 24))   # 16, 17, 20 and 23 retry
+FOLLOW_E, FOLLOW_N, FOLLOW_STEPS = 8, 2, 200
+FOLLOW_RESETS = tuple((100 + s, 200 + s, d) for d in ("CCW", "CW")
+                      for s in range(FOLLOW_E // 2))
 
 
 def phase(msg: str) -> None:
@@ -2308,19 +2328,19 @@ def state_recipe():
 
 
 def learner_phases(smi: str, dev: torch.device) -> dict:
-    phase(f"19/35 the committed policies' networks on the card vs the CPU ({LEARNER_NET_OBS} "
+    phase(f"19/36 the committed policies' networks on the card vs the CPU ({LEARNER_NET_OBS} "
           f"observations each, after {LEARNER_DRIVE} driven steps)")
     nets = network_phase(dev)
-    phase(f"20/35 the committed policies evaluated on the card: {LEARNER_EPISODES} fresh "
+    phase(f"20/36 the committed policies evaluated on the card: {LEARNER_EPISODES} fresh "
           f"episodes each on tracks generated on the card, seed {LEARNER_SEED}, "
           f"deterministic")
     t20 = time.perf_counter()
     evals = evaluation_phase(smi, dev)
     phase(f"phase 20 took {time.perf_counter() - t20:.1f} s")
-    phase("21/35 three PPO updates at the pixel recipe's shape (multi2px: N=2, E=1024, T=32, "
+    phase("21/36 three PPO updates at the pixel recipe's shape (multi2px: N=2, E=1024, T=32, "
           "R=4, K=2, squash, lr 1e-4, kl_target 0.03)")
     pixel = ppo_phase("pixel PPO", *pixel_recipe(), smi, dev)
-    phase("22/35 three PPO updates at the state recipe's shape (CarRacing-v0, E=1024, T=32, "
+    phase("22/36 three PPO updates at the state recipe's shape (CarRacing-v0, E=1024, T=32, "
           "R=4, normalize, width 512)")
     state = ppo_phase("state PPO", *state_recipe(), smi, dev)
     return {"networks": nets, "evaluations": evals, "ppo_pixels": pixel, "ppo_state": state}
@@ -2802,6 +2822,88 @@ def demo_phase(dev: torch.device) -> dict:
             "launches": counts}
 
 
+def trackgen_episode_phase(smi: str, dev: torch.device) -> dict:
+    """Phase 36: the native track generator against the Python walk, its use
+    by reset_batch, and the follower closed-loop on the card against the
+    plain path on the CPU on the same actions."""
+    t0 = time.perf_counter()
+    if native.load() is None:
+        raise AssertionError(f"the native track generator did not build: "
+                             f"{native.build_error()}")
+    build_s = time.perf_counter() - t0
+    walk_s = fast_s = 0.0
+    retried = 0
+    for seed in TRACKGEN_SEEDS:
+        fast_rng, walk_rng = seeding.np_random(seed)[0], seeding.np_random(seed)[0]
+        for _ in range(2):              # the second track continues the stream
+            t = time.perf_counter()
+            fast = thost.generate_track_fast(fast_rng)
+            fast_s += time.perf_counter() - t
+            t = time.perf_counter()
+            walk = thost.generate_track(walk_rng)
+            walk_s += time.perf_counter() - t
+            if not (np.array_equal(fast[0], walk[0]) and np.array_equal(fast[1], walk[1])
+                    and fast[2] == walk[2]):
+                raise AssertionError(f"native track of seed {seed} differs from the walk's")
+            retried += fast[2] > 0
+        if not np.array_equal(fast_rng.random_sample(16), walk_rng.random_sample(16)):
+            raise AssertionError(f"seed {seed}: the native stream does not continue the walk's")
+    tracks = 2 * len(TRACKGEN_SEEDS)
+    phase(f"native generator built/loaded in {build_s:.2f} s; {tracks} tracks of seeds "
+          f"{TRACKGEN_SEEDS[0]}-{TRACKGEN_SEEDS[-1]} ({retried} after a retry) bit-equal to the "
+          f"Python walk, the next 16 draws equal; {1e3 * fast_s / tracks:.3f} ms a track "
+          f"against the walk's {1e3 * walk_s / tracks:.3f} (host CPU)")
+    cfg = EnvConfig(num_agents=FOLLOW_N)
+    native.generate_track.calls = 0
+    penv.reset_batch(cfg, TRACKGEN_SEEDS, len(TRACKGEN_SEEDS))
+    if native.generate_track.calls != len(TRACKGEN_SEEDS):
+        raise AssertionError(f"reset_batch made {native.generate_track.calls} native tracks, "
+                             f"expected {len(TRACKGEN_SEEDS)}")
+
+    zero_counts()
+    t = time.perf_counter()
+    card = oep.run_episodes_closed(cfg, FOLLOW_RESETS, max_steps=FOLLOW_STEPS)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t
+    counts = read_counts()
+    want = {"k1": 0, "k2": FOLLOW_STEPS + 1, "k3": 0, "k4_k5": FOLLOW_STEPS + 1, "k6": 0,
+            "plain_track_calls": 0, "plain_paint_calls": 0}       # + the spawn tick
+    if counts != want:
+        raise AssertionError(f"follower run: launch counts {counts}, expected {want}")
+    if not card["finite"].all():
+        raise AssertionError("follower run: a car's state went nonfinite on the card")
+    t = time.perf_counter()
+    plain = oep.run_episodes_open(cfg, FOLLOW_RESETS, card["actions"], device="cpu")
+    plain_s = time.perf_counter() - t
+    # Before the first contact in either run, the two paths follow one
+    # trajectory up to float32 noise; past it, the system is chaotic.
+    first = np.where(card["contact_step"] >= 0, card["contact_step"], FOLLOW_STEPS)
+    first = np.minimum(first, np.where(plain["contact_step"] >= 0, plain["contact_step"],
+                                       FOLLOW_STEPS))
+    before = np.arange(FOLLOW_STEPS)[:, None] < first[None]
+    err = float(np.abs(card["rewards"] - plain["rewards"]).max(-1)[before].max(initial=0.0))
+    out = {"build_s": build_s, "tracks": tracks, "retried": int(retried),
+           "native_ms_per_track": 1e3 * fast_s / tracks,
+           "walk_ms_per_track": 1e3 * walk_s / tracks, "follower_launches": counts,
+           "follower_card_s": card_s, "follower_plain_cpu_s": plain_s,
+           "steps_with_near_env": int((card["near"] > 0).sum()),
+           "contact_step_card": card["contact_step"].tolist(),
+           "contact_step_plain": plain["contact_step"].tolist(),
+           "steps_compared": int(before.sum()), "reward_max_abs_err": err,
+           "returns_card": card["rewards"].sum(0).sum(-1).tolist(),
+           "returns_plain": plain["rewards"].sum(0).sum(-1).tolist()}
+    phase(f"follower closed loop N={FOLLOW_N}, E={FOLLOW_E}, {FOLLOW_STEPS} steps on {smi}: "
+          f"{card_s:.2f} s, launches {counts}, K2 near envs in {out['steps_with_near_env']} "
+          f"steps, first contact steps {out['contact_step_card']}; the plain path on the CPU "
+          f"on its actions {plain_s:.2f} s, first contacts {out['contact_step_plain']}; "
+          f"max |reward card - plain| {err:.3g} over {out['steps_compared']} env-steps before "
+          f"the first contact")
+    if err > BONUS_TOL or out["steps_compared"] == 0:
+        raise AssertionError(f"follower run: rewards on the card differ from the plain path's "
+                             f"by {err:.3g} before the first contact (bar {BONUS_TOL})")
+    return out
+
+
 def report(name: str, source: str, replaces: str, launches: int, max_abs_err: float,
            max_err_over_bar: float, times: dict, **extra) -> dict:
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -2811,7 +2913,7 @@ def report(name: str, source: str, replaces: str, launches: int, max_abs_err: fl
 
 def main() -> int:
     start = time.perf_counter()
-    phase("1/35 device")
+    phase("1/36 device")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs the port on the card only",
               file=sys.stderr)
@@ -2825,7 +2927,7 @@ def main() -> int:
     phase(f"device {kind} | nvidia-smi: {smi} | torch {torch.__version__} "
           f"cuda {torch.version.cuda} | python {sys.version.split()[0]}")
 
-    phase("2/35 build (one nvcc per kernel, started together)")
+    phase("2/36 build (one nvcc per kernel, started together)")
     t0 = time.perf_counter()
     kernels = (fused_world.KERNEL, fused_world.CONTACT_KERNEL, fused_world.SOLVE_KERNEL,
                track_engine.KERNEL, pixels.KERNEL)
@@ -2849,7 +2951,7 @@ def main() -> int:
     cfg = EnvConfig(num_agents=1, use_random_direction=False)
     actions = cycled_actions(E, cfg.num_agents, dev)
 
-    phase(f"3/35 K1 vs plain at E={E} after 20 steps")
+    phase(f"3/36 K1 vs plain at E={E} after 20 steps")
     state = penv.reset_batch(cfg, SEEDS, E)
     for t in range(20):
         state, _, _ = penv.step(cfg, state, actions[t % 8])
@@ -2873,7 +2975,7 @@ def main() -> int:
           f"{KERNEL_TIMING_LAUNCHES} launches); "
           f"{ptx['K1'].get('joints_island', {}).get('registers')} registers")
 
-    phase(f"4/35 small input: {len(SMALL_SEEDS)} envs x {SMALL_STEPS} steps, card vs CPU")
+    phase(f"4/36 small input: {len(SMALL_SEEDS)} envs x {SMALL_STEPS} steps, card vs CPU")
     small = {d: penv.reset_batch(cfg, SMALL_SEEDS, len(SMALL_SEEDS), device=d)
              for d in ("cuda", "cpu")}
     returns = {d: 0.0 for d in small}
@@ -2888,7 +2990,7 @@ def main() -> int:
     if not (ret_dev <= 2e-5 and pos_dev <= 1e-3):
         raise AssertionError("small-input run on the card disagrees with the CPU path")
 
-    phase(f"5/35 N=1 main path: reset_batch E={E} ({len(SEEDS)} tracks) + {WARMUP} "
+    phase(f"5/36 N=1 main path: reset_batch E={E} ({len(SEEDS)} tracks) + {WARMUP} "
           f"warm-up + {T} steps")
     run1 = main_path(cfg, actions, "N=1", smi)
     times1 = kernel_times(cfg, run1, actions)
@@ -2900,7 +3002,7 @@ def main() -> int:
 
     cfg2 = EnvConfig(num_agents=2, use_random_direction=False)
     actions2 = cycled_actions(E, cfg2.num_agents, dev)
-    phase(f"6/35 K2 vs plain at N=2, E={E}, driven until {NEAR_SHARE:.0%} of envs are near")
+    phase(f"6/36 K2 vs plain at N=2, E={E}, driven until {NEAR_SHARE:.0%} of envs are near")
     state = penv.reset_batch(cfg2, SEEDS, E)
     for t in range(NEAR_MAX_STEPS + 1):
         pre = apply_controls(state.cars, actions2[t % 8])
@@ -2962,7 +3064,7 @@ def main() -> int:
         raise AssertionError(f"K2 vs plain (all-near): {id_near} envs' ids, {skid_near} skid "
                              f"flags differ")
 
-    phase("7/35 rear-end ram (N=4, E=1): K2 vs plain at the first step with contact")
+    phase("7/36 rear-end ram (N=4, E=1): K2 vs plain at the first step with contact")
     ram_cfg, ram, ram_act, ram_t = ram_state(dev)
     ram_pre = apply_controls(ram.cars, ram_act)
     k_ram = fused_world.island_step(ram_pre, ram.wheel_on_road, ram.contacts)
@@ -2978,7 +3080,7 @@ def main() -> int:
     if ram_id_miss:
         raise AssertionError("ram: K2's manifold ids differ from the plain version's")
 
-    phase(f"7/35 (cont.) N=4, E={N4_E}, driven until {NEAR_SHARE:.0%} of envs are near: K2 vs "
+    phase(f"7/36 (cont.) N=4, E={N4_E}, driven until {NEAR_SHARE:.0%} of envs are near: K2 vs "
           f"plain, the far pass, and K2 beside K3")
     cfg4 = EnvConfig(num_agents=4, use_random_direction=False)
     actions4 = cycled_actions(N4_E, 4, dev)
@@ -3011,7 +3113,7 @@ def main() -> int:
                                                  pile[2], "K2 vs plain (N=4, > 32 live rows)")
     phase(f"> 32 live rows: envs whose manifold ids differ {id_pile}")
 
-    phase("8/35 determinism: two K2 launches on phase 6's input")
+    phase("8/36 determinism: two K2 launches on phase 6's input")
     fin, ls_in = fused_world.pack_inputs(pre, state.wheel_on_road)
     a = fused_world.launch_contacts(fin, ls_in, cs_pre, cfg2.num_agents)
     b = fused_world.launch_contacts(fin, ls_in, cs_pre, cfg2.num_agents)
@@ -3032,19 +3134,19 @@ def main() -> int:
     # K3's path: world_step_batched on the card, its count set to 0 here and
     # read after phase 11; each call below launches K3 once.
     fused_world.world_step_batched.launches = 0
-    phase(f"9/35 K3 vs plain at N=2, E={E}, full {cfg2.velocity_iters}/"
+    phase(f"9/36 K3 vs plain at N=2, E={E}, full {cfg2.velocity_iters}/"
           f"{cfg2.position_iters}, on phase 6's input (plain tire model, Collide, make_bundle)")
     solve2 = solve_inputs(pre, state.wheel_on_road, cs_pre, 2)
     devs3 = compare_solve(solve2, 2, "K3 vs plain (N=2)")
 
-    phase("10/35 K3 vs plain on phase 7's ram (N=4, E=1) and at N=1, E=4096 (no bundle)")
+    phase("10/36 K3 vs plain on phase 7's ram (N=4, E=1) and at N=1, E=4096 (no bundle)")
     devs3.update({f"ram {f}": v for f, v in compare_solve(
         solve_inputs(ram_pre, ram.wheel_on_road, ram.contacts, 4), 4,
         "K3 vs plain (ram, N=4)").items()})
     devs3.update({f"N=1 {f}": v for f, v in compare_solve(
         solve_inputs(pre1, road1, None, 1), 1, "K3 vs plain (N=1)").items()})
 
-    phase("11/35 K2 vs plain Collide + K3 on phase 6's input")
+    phase("11/36 K2 vs plain Collide + K3 on phase 6's input")
     post2, _, _, _, skid2, man2 = solve2
     k3_cars, (k3_ni, k3_ti) = fused_world.world_step_batched(*solve2[:4], 2)
     live_list_check(solve2[3], E, "K3 on phase 6's input")
@@ -3061,7 +3163,7 @@ def main() -> int:
     if k3_launches != 4:
         raise AssertionError(f"K3 launched {k3_launches} times on its path, expected 4")
 
-    phase(f"12/35 K3 determinism and times at N=2, E={E} on phase 6's input, beside K2 on {smi}")
+    phase(f"12/36 K3 determinism and times at N=2, E={E} on phase 6's input, beside K2 on {smi}")
     same3 = []
     for solve_in in (solve2, solve_inputs(*near_in, 2)):
         fin3, ls3 = fused_world.pack_solve_inputs(*solve_in[:3])
@@ -3082,7 +3184,7 @@ def main() -> int:
         phase(f"K3 on the {name} input:")
         times3_more[name] = solve_times(*args)
 
-    phase(f"13/35 N=2 main path: reset_batch E={E} ({len(SEEDS)} tracks) + {WARMUP} "
+    phase(f"13/36 N=2 main path: reset_batch E={E} ({len(SEEDS)} tracks) + {WARMUP} "
           f"warm-up + {T} steps")
     run2 = main_path(cfg2, actions2, "N=2", smi)
     times2 = kernel_times(cfg2, run2, actions2)
@@ -3119,7 +3221,7 @@ def main() -> int:
                                                       for _, rv, rs in devs_pile.values())},
                 ptxas=ptx["K2"])
 
-    phase(f"14/35 K4/K5 vs plain at E={E}, N=1 and N=2, and E={N4_E}, N=4: a stepped state, "
+    phase(f"14/36 K4/K5 vs plain at E={E}, N=1 and N=2, and E={N4_E}, N=4: a stepped state, "
           f"a spawn tick, lifted wheels, and the cull's edges (on-road, seam, kerb, off-road, "
           f"self-approach, wheels-only); the cull's probes (wheels only, origins only)")
     checks = {**track_phase(cfg, actions), **track_phase(cfg2, actions2),
@@ -3135,24 +3237,24 @@ def main() -> int:
                              "cand_mean": r["cand_mean"], "cand_max": r["cand_max"]}
                          for k, r in checks.items()})
 
-    phase(f"15/35 state-PPO rollout: E={E}, N={ROLLOUT_N}, pool of {len(POOL_SEEDS)} host "
+    phase(f"15/36 state-PPO rollout: E={E}, N={ROLLOUT_N}, pool of {len(POOL_SEEDS)} host "
           f"tracks, chunks of {ROLLOUT_CHUNK} steps, past the time limit")
     rollout = rollout_phase(smi, dev)
 
-    phase("16/35 K6 vs plain: N=2 spawn tick, steady, mid zoom, camera jitter, mixed and "
+    phase("16/36 K6 vs plain: N=2 spawn tick, steady, mid zoom, camera jitter, mixed and "
           "backward at E=4096; N=1 CW; N=4 ego colour; the golden frames")
     pool = penv.make_host_track_pool(EnvConfig(num_agents=2), POOL_SEEDS, device=dev)
     t16 = time.perf_counter()
     px_checks = pixel_checks(dev, pool)
     phase(f"phase 16 took {time.perf_counter() - t16:.1f} s")
 
-    phase(f"17/35 pixel main path: reset_batch E={E}, N=2 + {WARMUP} warm-up + {T} steps, a "
+    phase(f"17/36 pixel main path: reset_batch E={E}, N=2 + {WARMUP} warm-up + {T} steps, a "
           f"frame after the reset and after every step")
     t17 = time.perf_counter()
     px_run = pixel_main_path(smi, dev)
     phase(f"phase 17 took {time.perf_counter() - t17:.1f} s")
 
-    phase(f"18/35 pixel-PPO env side: E={PPO_E}, N=2, {PPO_CHUNKS} chunks of {PPO_DECISIONS} "
+    phase(f"18/36 pixel-PPO env side: E={PPO_E}, N=2, {PPO_CHUNKS} chunks of {PPO_DECISIONS} "
           f"decisions x {PPO_REPEAT} steps, autoreset, past the time limit")
     px_rollout = pixel_rollout_phase(smi, dev, pool)
     learner = learner_phases(smi, dev)
@@ -3200,22 +3302,22 @@ def main() -> int:
                                                       "k2_ms_same_input", "live_envs")}
                              for name, t in times3_more.items()},
                 ptxas=ptx["K3"])
-    phase("23/35 the Gym facade on the card: MultiCarRacing-v0 and CarRacing-v0, "
+    phase("23/36 the Gym facade on the card: MultiCarRacing-v0 and CarRacing-v0, "
           f"{FACADE_STEPS} steps each")
     t23 = time.perf_counter()
     facade = {env_id: facade_phase(env_id, smi, dev)
               for env_id in ("MultiCarRacing-v0", "CarRacing-v0")}
     seconds = {"23": time.perf_counter() - t23}
-    phase("24/35 the 600x400 rgb_array painter on the card: the golden frame, and a frame "
+    phase("24/36 the 600x400 rgb_array painter on the card: the golden frame, and a frame "
           "after hard braking")
     t = time.perf_counter()
     facade["rgb_array"] = rgb_array_phase(smi, dev)
     seconds["24"] = time.perf_counter() - t
-    phase("25/35 Monitor: one short episode")
+    phase("25/36 Monitor: one short episode")
     t = time.perf_counter()
     facade["monitor"] = monitor_phase(dev)
     seconds["25"] = time.perf_counter() - t
-    phase("26/35 python -m multi_car_racing_tpu_torch.train: 3 updates, an evaluation, "
+    phase("26/36 python -m multi_car_racing_tpu_torch.train: 3 updates, an evaluation, "
           "a checkpoint, then --resume")
     t = time.perf_counter()
     facade["train_cli"] = train_cli_phase()
@@ -3223,39 +3325,39 @@ def main() -> int:
     facade["seconds"] = seconds
     phase(f"phases 23-26 took {time.perf_counter() - t23:.1f} s: " + ", ".join(
         f"phase {k} {v:.1f} s" for k, v in seconds.items()))
-    phase(f"27/35 tracks generated on the card: a checked pool of {GEN_POOL}, device_reset at "
+    phase(f"27/36 tracks generated on the card: a checked pool of {GEN_POOL}, device_reset at "
           f"E={E}, N=2, and one attempt on the card against the CPU on the same uniforms")
     t = time.perf_counter()
     generation = generation_phase(smi, dev)
     seconds = {"27": time.perf_counter() - t}
-    phase(f"28/35 VectorMultiCarRacing on the card: E={E}, N=2, obs=pixels, time limit "
+    phase(f"28/36 VectorMultiCarRacing on the card: E={E}, N=2, obs=pixels, time limit "
           f"{VEC_LIMIT}, {VEC_STEPS} steps")
     t = time.perf_counter()
     vector = {"pixels": vector_phase("pixels", 2, smi, dev)}
     seconds["28"] = time.perf_counter() - t
-    phase(f"29/35 VectorMultiCarRacing on the card: obs=state at N=1 (K1), obs=none at N=2")
+    phase(f"29/36 VectorMultiCarRacing on the card: obs=state at N=1 (K1), obs=none at N=2")
     t = time.perf_counter()
     vector["state"] = vector_phase("state", 1, smi, dev)
     vector["none"] = vector_phase("none", 2, smi, dev)
     seconds["29"] = time.perf_counter() - t
-    phase(f"30/35 K2 and K3 past shared memory: the scratch layout at N={NARROW_NS} and "
+    phase(f"30/36 K2 and K3 past shared memory: the scratch layout at N={NARROW_NS} and "
           f"N={WIDE_NS}, and past one car a lane at N={PAST_WARP_NS}, E={WIDE_E}, against the "
           f"plain versions")
     t = time.perf_counter()
     wide, wide_states_past = wide_contact_phase(dev, smi)
     seconds["30"] = time.perf_counter() - t
     phase("phases 27-30 took " + ", ".join(f"phase {k} {v:.1f} s" for k, v in seconds.items()))
-    phase(f"31/35 a world of one over NCCL in this process: the state recipe, {DP_UPDATES} "
+    phase(f"31/36 a world of one over NCCL in this process: the state recipe, {DP_UPDATES} "
           f"updates, against the same updates without a world")
     t = time.perf_counter()
     dp = {"world_of_one": world_of_one_phase(smi, dev)}
     seconds = {"31": time.perf_counter() - t}
-    phase(f"32/35 {DP_RANKS} ranks sharing the card over gloo (processes): the state recipe "
+    phase(f"32/36 {DP_RANKS} ranks sharing the card over gloo (processes): the state recipe "
           f"(1 update) and the pixel recipe ({DP_UPDATES} updates, a checkpoint)")
     t = time.perf_counter()
     dp["two_ranks"] = two_rank_phase(smi, dev, dp["world_of_one"]["runs"]["one process"])
     seconds["32"] = time.perf_counter() - t
-    phase(f"33/35 demo.py on the card: {DEMO_STEPS} steps at N=2, a GIF")
+    phase(f"33/36 demo.py on the card: {DEMO_STEPS} steps at N=2, a GIF")
     t = time.perf_counter()
     dp["demo"] = demo_phase(dev)
     seconds["33"] = time.perf_counter() - t
@@ -3268,7 +3370,7 @@ def main() -> int:
                   "warp_bytes": r["warp_bytes"], "max_err_over_bar": max(
                       v for key, v in r["max_err_over_bar"].items() if key.startswith(name))}
             for lab, r in wide.items() if "k2" in r}
-    phase(f"34/35 past 32 cars an env: K4/K5 and K6 against plain at N={PAST_WARP_NS}, "
+    phase(f"34/36 past 32 cars an env: K4/K5 and K6 against plain at N={PAST_WARP_NS}, "
           f"E={WIDE_E}, and MultiCarRacing-v0 with num_agents={PAST_WARP_NS[0]} on the card")
     t = time.perf_counter()
     past_warp = past_warp_phase(wide_states_past, dev, smi)
@@ -3281,12 +3383,20 @@ def main() -> int:
             for n in PAST_WARP_NS}
     for k, name in ((k2, "k2"), (k45, "k4_k5"), (k6, "k6")):
         k["past_32_cars"]["facade_launches"] = past_warp["facade"]["launches"][name]
-    phase(f"35/35 report: every phase passed in {time.perf_counter() - start:.1f} s")
+    phase("36/36 the native host track generator against the Python walk, reset_batch on it, "
+          f"and the track follower closed-loop at N={FOLLOW_N}, E={FOLLOW_E} for "
+          f"{FOLLOW_STEPS} steps on the card against the plain path on the CPU")
+    t = time.perf_counter()
+    trackgen = trackgen_episode_phase(smi, dev)
+    trackgen["seconds"] = time.perf_counter() - t
+    phase(f"phase 36 took {trackgen['seconds']:.1f} s")
+    phase(f"35/36 report: every phase passed in {time.perf_counter() - start:.1f} s")
     print(json.dumps({"learner": learner}), flush=True)
     print(json.dumps({"facade": facade}), flush=True)
     print(json.dumps({"generation": generation, "vector": vector,
                       "past_shared_memory": wide, "past_32_cars": past_warp}), flush=True)
     print(json.dumps({"data_parallel": dp}), flush=True)
+    print(json.dumps({"trackgen_and_follower": trackgen}), flush=True)
     print(json.dumps({"kernels": [k1, k2, k3, k45, k6], "rollout": rollout,
                       "pixel_main_path": {k: v for k, v in px_run.items()},
                       "pixel_rollout": px_rollout}), flush=True)

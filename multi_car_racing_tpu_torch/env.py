@@ -271,7 +271,7 @@ def step(cfg: C.EnvConfig, state: EnvState, action: torch.Tensor):
 def _episode_from_seed(cfg: C.EnvConfig, np_rng, global_stream):
     direction = global_stream.direction() if cfg.use_random_direction else cfg.direction
     order = np.asarray(global_stream.car_order(cfg.num_agents))
-    pts, border, retries = track_host.generate_track(np_rng)
+    pts, border, retries = track_host.generate_track_fast(np_rng)
     arrays = pack_track_arrays(pts, border, cfg.max_tiles)
     return arrays, order, direction, {"n_tiles": len(pts), "retries": retries,
                                       "direction": direction}
@@ -280,8 +280,9 @@ def _episode_from_seed(cfg: C.EnvConfig, np_rng, global_stream):
 def host_reset(cfg: C.EnvConfig, seed=None, global_stream=None, np_rng=None,
                device=None):
     """Host-path reset of one env (E = 1): bit-parity MT19937 track
-    generation + the reference's global-stream episode draws, then the
-    spawn tick on ``device`` (default CUDA).
+    generation (the native walk, ``track_host.generate_track_fast``) + the
+    reference's global-stream episode draws, then the spawn tick on
+    ``device`` (default CUDA).
 
     Returns (EnvState, info dict)."""
     dev = resolve_device(device)
@@ -330,17 +331,18 @@ def reset_batch(cfg: C.EnvConfig, seeds: Sequence[int], num_envs: int,
 
 def make_host_track_pool(cfg: C.EnvConfig, seeds: Sequence[int], device=None) -> Track:
     """A pool of ``len(seeds)`` host tracks stacked on ``device`` (default
-    CUDA), one per seed, from the bit-exact host generator (``track/host.py``
-    -> ``pack_track_arrays`` -> ``track_from_arrays``): for autoreset
-    (``reset_done_envs``) where parity work wants the reference's tracks.
-    ``make_track_pool`` draws a pool on the device instead."""
+    CUDA), one per seed, from the bit-exact host generator
+    (``track/host.generate_track_fast`` -> ``pack_track_arrays`` ->
+    ``track_from_arrays``): for autoreset (``reset_done_envs``) where
+    parity work wants the reference's tracks. ``make_track_pool`` draws a
+    pool on the device instead."""
     dev = resolve_device(device)
     seeds = list(seeds)
     if not seeds:
         raise ValueError("make_host_track_pool needs at least one seed")
     arrays = []
     for seed in seeds:
-        pts, border, _ = track_host.generate_track(seeding.np_random(seed)[0])
+        pts, border, _ = track_host.generate_track_fast(seeding.np_random(seed)[0])
         arrays.append(pack_track_arrays(pts, border, cfg.max_tiles))
     return track_from_arrays(arrays, dev)
 

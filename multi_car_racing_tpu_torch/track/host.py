@@ -167,3 +167,15 @@ def generate_track(
         if out is not None:
             return out[0], out[1], attempt
     raise RuntimeError(f"track generation failed {max_retries} times")
+
+
+def generate_track_fast(
+    rng: np.random.RandomState, max_retries: int = 100
+) -> tuple[np.ndarray, np.ndarray, int]:
+    """:func:`generate_track` on the native core (``native.py``): bit-exact
+    with it, the stream's continuation included. Unlike the JAX package's,
+    it does not fall back to the Python walk: a failed build raises with
+    the compiler's message."""
+    from .. import native
+
+    return native.generate_track(rng, max_retries)

@@ -34,8 +34,9 @@ for name in ("jax", "jaxlib", "flax"):
     sys.modules[name] = None          # any import of them now raises
 sys.path.insert(0, {str(ROOT)!r})
 import multi_car_racing_tpu_torch
-from multi_car_racing_tpu_torch import config, convert, env, obs, seeding, util, _cuda
+from multi_car_racing_tpu_torch import config, convert, env, native, obs, seeding, util, _cuda
 from multi_car_racing_tpu_torch import demo, gym_api, metrics, monitor, train, tui, window
+from multi_car_racing_tpu_torch.oracle import episodes
 from multi_car_racing_tpu_torch.parallel import mesh
 from multi_car_racing_tpu_torch.physics import (
     collide, fused_world, joints, overlap, shapes, state, tire, track_engine, world)
